@@ -1,0 +1,540 @@
+#!/usr/bin/env python3
+"""Chip smoke test of ``repro_torch``: ZapRAID's datapath on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+It builds the CUDA codec kernels from ``src/repro_torch/kernels/csrc`` into
+``build/repro_torch/`` and then runs, failing on the first error:
+
+1. kernels -- each kernel against its plain torch version, bit-exact, at the
+   datapath's shapes and at odd lane counts; timed on the card (profiler
+   device time and CUDA events) beside its bound: the larger of bytes over
+   the memory rate and the integer instructions of its compiled main loop
+   (``cuobjdump -sass``) over the card's INT32 rate;
+2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
+   blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
+   Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
+   small and large writes; read, fail a drive, degraded read, rebuild, read;
+3. RAID-6 (2+2) on the same geometry and traffic: write, fail, degraded
+   read, rebuild, then two failures and a read;
+4. crash recovery -- a crash armed mid-group, ``recover_array``, and a
+   read-back of every acknowledged block;
+5. card vs CPU -- one small workload through ``device="cuda"`` and
+   ``device="cpu"``; the drive images must be byte-equal.
+
+Each phase prints one JSON line.  The kernel launch counts are zeroed just
+before phase 2 and read just after phase 4; the ``kernels`` line reports
+them.  The last two lines are the card's name and power limit and the
+``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# The bound of a kernel is the larger of its bytes over the H100's 3.35 TB/s
+# of HBM3 (NVIDIA data sheet) and its integer operations over the INT32 rate:
+# 64 INT32 lanes per SM per clock (H100 whitepaper), times this card's SMs
+# and its maximum SM clock.  The operations are counted in the kernel's
+# compiled code (SASS): the instructions of the ALU pipe, which runs the
+# INT32 lanes, in its main loop.  IMAD runs on the FMA pipe and uniform (U*)
+# instructions once per warp, so neither is counted, nor is the code around
+# the loop: the time this gives is a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM_CLOCK = 64
+ALU_OPCODES = frozenset({
+    "LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS",
+    "BMSK", "SGXT", "FLO", "POPC", "BREV",
+})
+# The 128-bit (aligned-row) instances of the kernels in codec.cu, which every
+# main-path shape launches, by a fragment of their mangled names.
+SASS_FUNCTIONS = {"xor_reduce": "17xor_reduce_kernelILb1E",
+                  "gf256_matmul": "19gf256_matmul_kernelILb1E"}
+
+# ZapRAID's hybrid setting (arXiv 2402.17963 Sec. 3.3/5, as encoded at
+# benchmarks/run.py hybrid_write_perf): N_s=1 small segment with C_s=8 KiB and
+# G=256, N_l=3 large Zone-Write segments with C_l=16 KiB, 4 KiB blocks.
+BLOCK_BYTES = 4096
+SEED = 0  # of the traffic and the data; every phase makes its blocks from it
+FULL = dict(zones=12, zone_cap_blocks=16384, logical_blocks=65536, group=256)
+
+
+def _die(msg: str) -> int:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    return 1
+
+
+def _emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# --------------------------------------------------------------------- setup
+
+def array_config(scheme: str, device: str, geom: dict):
+    from repro_torch.core.array import ZapRaidConfig
+    from repro_torch.core.zns import ZnsConfig
+
+    cfg = ZapRaidConfig(
+        scheme=scheme, n_drives=4, group_size=geom["group"],
+        logical_blocks=geom["logical_blocks"], hybrid=True, n_small=1,
+        n_large=3, small_chunk_blocks=2, large_chunk_blocks=4,
+        append_order="rng", device=device,
+    )
+    zns = ZnsConfig(n_zones=geom["zones"], zone_cap_blocks=geom["zone_cap_blocks"],
+                    block_bytes=BLOCK_BYTES)
+    return cfg, zns
+
+
+def traffic(logical_blocks: int, seed: int):
+    """Fill the logical space once: 75% small writes of 1-3 blocks, 25% large
+    writes of 4-64 blocks, at consecutive LBAs.  Returns [(lba, n)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out, lba = [], 0
+    while lba < logical_blocks:
+        n = int(rng.integers(1, 4)) if rng.random() < 0.75 else int(rng.integers(4, 65))
+        n = min(n, logical_blocks - lba)
+        out.append((lba, n))
+        lba += n
+    return out
+
+
+def payload(logical_blocks: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    return rng.integers(0, 256, (logical_blocks, BLOCK_BYTES), dtype=np.uint8)
+
+
+def check_read_all(arr, want, what: str) -> None:
+    import numpy as np
+
+    got = arr.read(0, want.shape[0])
+    if not np.array_equal(got, want):
+        bad = int(np.flatnonzero((got != want).any(axis=1))[0])
+        raise AssertionError(f"{what}: block {bad} differs")
+
+
+class Phase:
+    """Times one phase and reports the kernel launches it added."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.info: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import launch_counts
+
+        self.before = launch_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        if exc_type is not None:
+            return False
+        import torch
+        from repro_torch.kernels import launch_counts
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        after = launch_counts()
+        _emit({"phase": self.name,
+               "seconds": time.perf_counter() - self.t0,
+               "launches": {k: after[k] - self.before[k] for k in after},
+               **self.info})
+        return False
+
+
+# ------------------------------------------------------------ phase 1: kernels
+
+def alu_ops_per_row_load(library: Path) -> dict[str, float]:
+    """ALU-pipe instructions per 16-byte row load in each kernel's main loop,
+    from the library's SASS (``cuobjdump -sass``).
+
+    The main loop is the backward branch whose span holds the most 128-bit
+    global loads.  A thread runs it once per row it loads, so its ALU
+    instructions over its loads, times the row loads of a launch, count the
+    launch's ALU work inside that loop."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    instr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    out = {}
+    for kernel, fragment in SASS_FUNCTIONS.items():
+        body = next((f for f in sass.split("Function : ")[1:]
+                     if f.split(None, 1)[0].find(fragment) >= 0), None)
+        if body is None:
+            raise RuntimeError(f"no {fragment} in the SASS of {library}")
+        code = [(int(a, 16), op, rest.strip()) for a, op, rest in instr.findall(body)]
+        best = None
+        for addr, op, target in code:
+            if op.split(".")[0] != "BRA" or not target.startswith("0x"):
+                continue
+            if int(target, 16) >= addr:
+                continue
+            loop = [o for a, o, _ in code if int(target, 16) <= a <= addr]
+            loads = sum(o.startswith("LDG.E.128") for o in loop)
+            alu = sum(o.split(".")[0] in ALU_OPCODES for o in loop)
+            if loads and (best is None or loads > best[0]):
+                best = (loads, alu)
+        if best is None:
+            raise RuntimeError(f"{fragment}: no loop with a 128-bit load in its SASS")
+        out[kernel] = best[1] / best[0]
+    return out
+
+
+def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
+    """(device ms, call ms) per call, over ``iters`` calls cycling through
+    ``args_list`` (distinct copies whose total exceeds the 50 MB L2, so
+    inputs come from device memory).
+
+    Device ms is the summed time of the GPU kernels (and memsets) the calls
+    ran, from ``torch.profiler``; it raises if the profile holds none.  Call
+    ms is CUDA-event time from the first call to the last, which includes
+    the host's launch overhead whenever the host cannot keep the card busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    call_ms = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if dev_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time for the timed calls")
+    return dev_us / 1e3 / iters, call_ms
+
+
+def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> list[dict]:
+    """Hold each kernel against its plain version, bit-exact, on the card;
+    time both at the datapath's main shapes.  Returns one row per entry.
+
+    ``alu_per_load`` is ``alu_ops_per_row_load`` of the built library; every
+    main shape takes the 128-bit path, whose threads load one 16-byte row per
+    input chunk (and, in the GF product, again per output row)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gf
+    from repro_torch.kernels import gf256_matmul as gfm
+    from repro_torch.kernels import parity_xor as px
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(7)
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+        ).to("cuda")
+
+    def coeff(mat):
+        return torch.from_numpy(np.asarray(mat, np.int32)).to("cuda")
+
+    def row_loads(n):  # 16-byte row loads of one n-lane chunk
+        return -(-n // 4)
+
+    xor_alu, gf_alu = alu_per_load["xor_reduce"], alu_per_load["gf256_matmul"]
+
+    enc22 = coeff(gf.rs_parity_matrix(2, 2))
+    decs22 = [coeff(gf.rs_decode_matrix(2, 2, s))
+              for s in [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]]
+    odd = (1, 4, 1023)
+    # (entry, kernel fn, plain fn, cases, main-shape args, bytes fn, ALU ops fn)
+    entries = [
+        ("parity_xor_batch", px.parity_xor_batch, ref.parity_xor_batch_ref,
+         [(rand(256, 3, 2048),)] + [(rand(5, 3, n),) for n in odd],
+         lambda: (rand(256, 3, 2048),),
+         lambda d: 4 * d.shape[0] * (d.shape[1] + 1) * d.shape[2],
+         lambda d: xor_alu * d.shape[0] * d.shape[1] * row_loads(d.shape[2])),
+        ("parity_xor", px.parity_xor, ref.parity_xor_ref,
+         [(rand(3, 4096),), (rand(3, 16),)] + [(rand(3, n),) for n in odd],
+         lambda: (rand(3, 4096),),
+         lambda d: 4 * (d.shape[0] + 1) * d.shape[1],
+         lambda d: xor_alu * d.shape[0] * row_loads(d.shape[1])),
+        ("gf256_matmul_batch", gfm.gf256_matmul_batch, ref.gf256_matmul_batch_ref,
+         [(c, rand(256, 2, 2048)) for c in [enc22, *decs22]]
+         + [(enc22, rand(5, 2, n)) for n in odd],
+         lambda: (enc22, rand(256, 2, 2048)),
+         lambda c, d: 4 * d.shape[0] * (d.shape[1] + c.shape[0]) * d.shape[2],
+         lambda c, d: gf_alu * c.numel() * d.shape[0] * row_loads(d.shape[2])),
+        ("gf256_matmul", gfm.gf256_matmul, ref.gf256_matmul_ref,
+         [(c, rand(2, 4096)) for c in [enc22, *decs22]]
+         + [(enc22, rand(2, n)) for n in odd],
+         lambda: (enc22, rand(2, 4096)),
+         lambda c, d: 4 * (d.shape[0] + c.shape[0]) * d.shape[1],
+         lambda c, d: gf_alu * c.numel() * row_loads(d.shape[1])),
+    ]
+    source = "src/repro_torch/kernels/csrc/codec.cu"
+    replaces = {
+        "parity_xor_batch": "src/repro/kernels/parity_xor.py:49",
+        "parity_xor": "src/repro/kernels/parity_xor.py:73",
+        "gf256_matmul_batch": "src/repro/kernels/gf256_matmul.py:76",
+        "gf256_matmul": "src/repro/kernels/gf256_matmul.py:103",
+    }
+    rows = []
+    for name, fn, plain, cases, main, nbytes, nops in entries:
+        max_err = 0
+        for args in cases:  # tolerance 0: every lane is integer bytes
+            got, want = fn(*args), plain(*args)
+            err = int((got.long() - want.long()).abs().max()) \
+                if got.shape == want.shape else -1
+            if err != 0:
+                raise AssertionError(f"{name}{[tuple(a.shape) for a in args]}: "
+                                     f"kernel differs from its plain version ({err})")
+            max_err = max(max_err, err)
+        main_args = main()
+        b = nbytes(*main_args)
+        # enough distinct copies that the rotation exceeds the L2 cache
+        copies = [main_args] + [main() for _ in range(max(1, (96 << 20) // b))]
+        ms, call_ms = _time_ms(fn, copies, 200)
+        plain_ms, plain_call_ms = _time_ms(plain, copies, 20)
+        byte_ms = 1e3 * b / HBM_BYTES_PER_S
+        op_ms = 1e3 * nops(*main_args) / int32_ops_per_s
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name], "launches": 0, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": None,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "shape": [list(a.shape) for a in main_args],
+            "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms, "cases": len(cases),
+        })
+        del copies
+    return rows
+
+
+# ---------------------------------------------------- phases 2-4: datapath
+
+def write_stream(arr, data, ops) -> None:
+    for lba, n in ops:
+        arr.write(lba, data[lba : lba + n])
+
+
+def raid_end_to_end(scheme: str, device: str, geom: dict, seed: int, ph: Phase) -> None:
+    from repro_torch.core.array import ZapRAIDArray
+
+    cfg, zns = array_config(scheme, device, geom)
+    ops = traffic(cfg.logical_blocks, seed)
+    data = payload(cfg.logical_blocks, seed)
+    arr = ZapRAIDArray(cfg, zns)
+    t = time.perf_counter()
+    write_stream(arr, data, ops)
+    arr.flush()
+    ph.info["writes"] = len(ops)
+    ph.info["write_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    check_read_all(arr, data, f"{scheme} read")
+    ph.info["read_s"] = time.perf_counter() - t
+    arr.fail_drive(1)
+    t = time.perf_counter()
+    check_read_all(arr, data, f"{scheme} degraded read")
+    ph.info["degraded_read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    arr.rebuild_drive(1)
+    ph.info["rebuild_s"] = time.perf_counter() - t
+    check_read_all(arr, data, f"{scheme} read after rebuild")
+    if scheme == "raid6":
+        arr.fail_drive(0)
+        arr.fail_drive(2)
+        t = time.perf_counter()
+        check_read_all(arr, data, "raid6 read with two failed drives")
+        ph.info["double_degraded_read_s"] = time.perf_counter() - t
+    ph.info["stats"] = dataclasses.asdict(arr.stats)
+
+
+def crash_recovery(device: str, geom: dict, seed: int, ph: Phase) -> None:
+    """Ack a prefix of the stream (write + flush), arm a crash of half a
+    Zone-Append group's block commits, go on with the stream's small writes
+    until the device crashes inside a group commit, recover, read back."""
+    from repro_torch.core.array import ZapRAIDArray
+    from repro_torch.core.recovery import recover_array
+    from repro_torch.core.zns import DeviceCrashed
+
+    cfg, zns = array_config("raid5", device, geom)
+    ops = traffic(cfg.logical_blocks, seed)
+    data = payload(cfg.logical_blocks, seed)
+    arr = ZapRAIDArray(cfg, zns)
+    cut = len(ops) // 4
+    write_stream(arr, data, ops[:cut])
+    arr.flush()
+    acked = ops[cut][0]  # LBAs [0, acked) are acknowledged
+    in_group = []
+    commit_group = arr._commit_built_group
+
+    def traced(grp):
+        in_group.append(True)
+        commit_group(grp)
+        in_group.pop()
+
+    arr._commit_built_group = traced
+    budget = cfg.group_size * cfg.n_drives * cfg.small_chunk_blocks // 2
+    arr.arm_crash(budget)
+    crashed = False
+    try:
+        for lba, n in ops[cut:]:
+            if n < cfg.large_chunk_blocks:
+                arr.write(lba, data[lba : lba + n])
+        arr.flush()
+    except DeviceCrashed:
+        crashed = True
+    if not crashed or not in_group:
+        raise AssertionError(f"crash did not land mid-group (crashed={crashed})")
+    t = time.perf_counter()
+    arr2 = recover_array(arr.drives, cfg, zns)
+    ph.info["recover_s"] = time.perf_counter() - t
+    ph.info["acked_blocks"] = acked
+    ph.info["budget_blocks"] = budget
+    check_read_all(arr2, data[:acked], "read-back after crash recovery")
+
+
+def card_vs_cpu(seed: int) -> dict:
+    """A small workload through the card and through the CPU path: the drive
+    images, L2P and stats must be equal."""
+    import numpy as np
+    from repro_torch.core.array import ZapRAIDArray, ZapRaidConfig
+    from repro_torch.core.zns import ZnsConfig, drive_images
+
+    def run(scheme, n_drives, device):
+        cfg = ZapRaidConfig(scheme=scheme, n_drives=n_drives, group_size=8,
+                            logical_blocks=256, device=device, append_order="rng")
+        arr = ZapRAIDArray(cfg, ZnsConfig(n_zones=12, zone_cap_blocks=64, block_bytes=256))
+        rng = np.random.default_rng(seed)
+        for _ in range(200):
+            n = int(rng.integers(1, 4))
+            arr.write(int(rng.integers(0, 256 - n)),
+                      rng.integers(0, 256, (n, 256), dtype=np.uint8))
+        arr.flush()
+        arr.fail_drive(1)
+        reads = arr.read(0, 256)
+        arr.rebuild_drive(1)
+        return arr, reads
+
+    out = {}
+    for scheme, n_drives in [("raid5", 4), ("raid6", 5)]:
+        a, ra = run(scheme, n_drives, "cuda")
+        b, rb = run(scheme, n_drives, "cpu")
+        for ia, ib in zip(drive_images(a.drives), drive_images(b.drives)):
+            for key in ia:
+                if not np.array_equal(ia[key], ib[key]):
+                    raise AssertionError(f"{scheme}: drive image {key} differs")
+        if not np.array_equal(ra, rb):
+            raise AssertionError(f"{scheme}: degraded reads differ")
+        if not np.array_equal(a.l2p.get_many(np.arange(256)), b.l2p.get_many(np.arange(256))):
+            raise AssertionError(f"{scheme}: L2P differs")
+        if dataclasses.asdict(a.stats) != dataclasses.asdict(b.stats):
+            raise AssertionError(f"{scheme}: stats differ")
+        out[scheme] = "equal"
+    return out
+
+
+# ---------------------------------------------------------------------- main
+
+def main() -> int:
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc" / "codec.cu").is_file():
+        return _die(f"no repro_torch package under {src}: run from a checkout")
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        return _die("torch.cuda.is_available() is false: this test needs a GPU")
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+
+    def smi(query: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    gpu = smi("name,power.limit")
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_ops_per_s = INT32_LANES_PER_SM_CLOCK * sms * max_sm_mhz * 1e6
+    _emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+           "python": sys.version.split()[0], "gpu": gpu, "sms": sms,
+           "max_sm_mhz": max_sm_mhz, "int32_ops_per_s": int32_ops_per_s})
+
+    t = time.perf_counter()
+    lib = _build.build(verbose=True)
+    _build.load()
+    alu_per_load = alu_ops_per_row_load(lib)
+    _emit({"phase": "build", "seconds": time.perf_counter() - t, "library": lib.name,
+           "alu_ops_per_row_load": alu_per_load})
+
+    with Phase("kernels") as ph:
+        rows = kernel_checks(alu_per_load, int32_ops_per_s)
+        ph.info["gpu"] = gpu
+        ph.info["kernels"] = [
+            {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
+                               "plain_call_ms", "bytes_us", "ops_us", "bound_by",
+                               "cases")}
+            for r in rows]
+
+    reset_launch_counts()  # the main path's launches start here
+    with Phase("raid5") as ph:
+        raid_end_to_end("raid5", "cuda", FULL, SEED, ph)
+    gc.collect()
+    c = launch_counts()
+    if not (c["parity_xor_batch"] and c["parity_xor"]):
+        raise AssertionError(f"raid5 did not launch both xor_reduce forms: {c}")
+    before = c
+    with Phase("raid6") as ph:
+        raid_end_to_end("raid6", "cuda", FULL, SEED, ph)
+    gc.collect()
+    c = launch_counts()
+    for name in ("gf256_matmul_batch", "gf256_matmul"):
+        if c[name] <= before[name]:
+            raise AssertionError(f"raid6 did not launch {name}: {c}")
+    with Phase("crash") as ph:
+        crash_recovery("cuda", FULL, SEED, ph)
+    gc.collect()
+    main_path = launch_counts()  # read just after the main path
+    idle = [k for k, v in main_path.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
+
+    with Phase("card_vs_cpu") as ph:
+        ph.info["result"] = card_vs_cpu(SEED)
+
+    for r in rows:
+        r["launches"] = main_path[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    print(gpu, flush=True)
+    _emit({"ok": True, "device": {"platform": "gpu",
+                                  "kind": torch.cuda.get_device_name(0),
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,3 +11,9 @@ _HERE = Path(__file__).resolve().parent
 for p in (str(_HERE), str(_HERE.parent / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skipped without one"
+    )

@@ -1,0 +1,66 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU fallback."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import raid as traid
+from repro_torch.core.array import ZapRAIDArray, ZapRaidConfig
+from repro_torch.core.zns import ZnsConfig
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    names = [name for _, name in _modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path,name", list(_modules()), ids=lambda v: str(v))
+def test_no_jax_or_repro_imports_in_source(path, name):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), (name, mod)
+
+
+def test_default_device_is_cuda_and_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ZapRaidConfig.__dataclass_fields__["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ZapRaidConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        traid.StripeCodec(traid.make_scheme("raid6", 4))
+    with pytest.raises(ValueError):
+        ZapRaidConfig(device="meta")
+    cfg = ZapRaidConfig(device="cpu")  # asking for the CPU is the only way there
+    arr = ZapRAIDArray(cfg, ZnsConfig(n_zones=8, zone_cap_blocks=64, block_bytes=256))
+    assert arr.codec.device.type == "cpu"
