@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Chip smoke test of ``repro_torch``: ZapRAID's datapath on one NVIDIA GPU.
+"""Chip smoke test of ``repro_torch`` on one NVIDIA GPU: ZapRAID's datapath
+and Mamba-2 1.3B serving.
 
 Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA codec kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/`` and then runs, failing on the first error:
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+``build/repro_torch/`` (one ``nvcc`` per source, in parallel) and then runs,
+failing on the first error:
 
-1. kernels -- each kernel against its plain torch version, bit-exact, at the
-   datapath's shapes and at odd lane counts; timed on the card (profiler
-   device time and CUDA events) beside its bound: the larger of bytes over
-   the memory rate and the integer instructions of its compiled main loop
-   (``cuobjdump -sass``) over the card's INT32 rate;
+1. kernels -- each codec kernel against its plain torch version, bit-exact,
+   at the datapath's shapes and at odd lane counts; timed on the card
+   (profiler device time and CUDA events) beside its bound: the larger of
+   bytes over the memory rate and the integer instructions of its compiled
+   main loop (``cuobjdump -sass``) over the card's INT32 rate.  The SSD scan
+   against its plain sequential version (tolerance ``SSD_TOL``) at the
+   serving shape in bf16 and f32, with an initial state, at t < chunk and
+   at the CPU tests' shapes; timed beside its bound (bytes over the memory
+   rate, or its FLOPs over the bf16 tensor-core rate);
 2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
    blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
    Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
@@ -22,13 +28,24 @@ It builds the CUDA codec kernels from ``src/repro_torch/kernels/csrc`` into
 4. crash recovery -- a crash armed mid-group, ``recover_array``, and a
    read-back of every acknowledged block;
 5. card vs CPU -- one small workload through ``device="cuda"`` and
-   ``device="cpu"``; the drive images must be byte-equal.
+   ``device="cpu"``; the drive images must be byte-equal;
+6. mamba2_serve -- ``mamba2-1.3b`` at full width (48 layers, bf16, random
+   weights from ``SEED``) serves 8 requests of 1,024 prompt tokens and 32
+   generated tokens at batch 4 through ``repro_torch.launch.serve.serve``:
+   prefill and decode tokens/s, peak device memory, finite logits, and 48
+   SSD launches per prefill call; then, in f32 at the same width,
+   ``prefill(t)`` plus k ``decode_step``s must give the last logits of
+   ``prefill(t + i)`` at every step (t = 250 pads a ragged chunk, k = 3).
+   Between the two, a profile of one prefill call and one decode step gives
+   device time by kernel and the card's idle share of each.
 
-Each phase prints one JSON line.  The kernel launch counts are zeroed just
-before phase 2 and read just after phase 4; the ``kernels`` line reports
-them.  The last two lines are the card's name and power limit and the
-``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+Each phase prints one JSON line.  The codec kernels' launch counts are
+zeroed just before phase 2 and read just after phase 4; the SSD scan's are
+zeroed just before the serving run of phase 6 and read just after it.  The
+``kernels`` line reports them.  The last two lines are the card's name and
+power limit and the ``{"ok": true, "device": ...}`` result.  Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -52,6 +69,13 @@ ROOT = Path(__file__).resolve().parent
 # the loop: the time this gives is a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM_CLOCK = 64
+# The SSD scan's operations are floating-point: its bound counts its FLOPs
+# over the dense bf16 tensor-core rate (NVIDIA data sheet; its timed inputs
+# are bf16), the least time the card could take for them; FP32_FLOP_PER_S,
+# the CUDA cores' f32 rate, is printed beside it for the FMA loops the
+# kernel runs now.
+BF16_TENSOR_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 ALU_OPCODES = frozenset({
     "LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS",
     "BMSK", "SGXT", "FLO", "POPC", "BREV",
@@ -67,6 +91,20 @@ SASS_FUNCTIONS = {"xor_reduce": "17xor_reduce_kernelILb1E",
 BLOCK_BYTES = 4096
 SEED = 0  # of the traffic and the data; every phase makes its blocks from it
 FULL = dict(zones=12, zone_cap_blocks=16384, logical_blocks=65536, group=256)
+
+# Mamba-2 serving (src/repro_torch/configs/mamba2_1_3b.py): requests, batch,
+# prompt and generated tokens; the decode check's prompt t and steps k.
+SERVE = dict(requests=8, batch=4, prompt=1024, gen=32)
+DECODE_CHECK = dict(batch=2, t=250, k=3)
+# The SSD kernel and its plain version compute in f32 from the same input
+# values (bf16 inputs are widened exactly); they differ in summation order
+# (chunked products vs a step-by-step recurrence) and in exp of cumulative
+# sums vs products of per-step decays: ~1e-5 relative at these shapes.
+SSD_TOL = 1e-3
+# prefill + decode vs a longer prefill, in f32 at full width: the two paths
+# sum in different orders through 48 layers (the reference's decode test
+# holds 2e-2 at smoke size, tests/test_models.py).
+DECODE_TOL = 2e-2
 
 
 def _die(msg: str) -> int:
@@ -331,6 +369,112 @@ def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> lis
     return rows
 
 
+def ssd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
+    """FLOPs the scan needs: per chunk and row, the lower triangle of C B^T
+    and of its product with dt*X, then C h_prev and the state update."""
+    q = min(chunk, t)
+    tri = q * (q + 1) // 2
+    return nb * nh * (t // q) * (2 * tri * n + 2 * tri * p + 4 * q * n * p)
+
+
+def ssd_bytes(args) -> int:
+    """Bytes the scan must move with its operands as given (b and c shared
+    by the heads of a batch row are read once): the inputs once, y and
+    h_final (f32) once."""
+    x, dt, a, b, c, h0 = args
+    nb, t, nh, p = x.shape
+    n = b.shape[-1]
+    ins = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
+    return ins + 4 * nb * t * nh * p + 4 * nb * nh * n * p
+
+
+def ssd_checks() -> dict:
+    """Hold the SSD kernel against its plain sequential version on the card;
+    time both at the serving shape.  Returns the ``ssd_scan`` row."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    cfg = get_config("mamba2-1.3b")  # its prefill's scan at the serving shape
+    nb, t = SERVE["batch"], SERVE["prompt"]
+    nh, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    chunk = cfg.ssm_chunk
+
+    def heads(dtype, nb, t, nh, p, n, h0=False):
+        """Operands as ``mamba_apply`` gives them: x, b, c strided views of
+        one (B, T, H*P + 2N) conv output; dt (B, T, H); a (H,)."""
+        conv = torch.from_numpy(rng.standard_normal((nb, t, nh * p + 2 * n), np.float32))
+        conv = conv.to("cuda", dtype)
+        x = conv[..., : nh * p].reshape(nb, t, nh, p)
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (nb, t, nh)).astype(np.float32)).cuda()
+        a = -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,)).astype(np.float32)).cuda()
+        s0 = torch.from_numpy(rng.standard_normal((nb, nh, n, p), np.float32)).cuda() \
+            if h0 else None
+        return x, dt, a, conv[..., nh * p : nh * p + n], conv[..., nh * p + n :], s0
+
+    def rows(dtype, bh, t, p, n):
+        """Operands in the Pallas kernel's layout, as the CPU tests make them."""
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()  # noqa: E731
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (bh, t)).astype(np.float32)).cuda()
+        a = -torch.from_numpy(rng.uniform(0.5, 2.0, (bh,)).astype(np.float32)).cuda()
+        return f(bh, t, p).to(dtype), dt, a, f(bh, t, n).to(dtype), f(bh, t, n).to(dtype), None
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (label, args, chunk)
+        ("main bf16", heads(bf16, nb, t, nh, p, n), chunk),
+        ("main f32", heads(f32, nb, t, nh, p, n), chunk),
+        ("main bf16 h0", heads(bf16, nb, t, nh, p, n, h0=True), chunk),
+        ("t<chunk bf16", heads(bf16, nb, 64, nh, p, n), chunk),
+        ("t<chunk f32 h0", heads(f32, 2, 100, 8, p, n, h0=True), chunk),
+    ] + [(f"cpu-test t={tt} chunk={ch} {dt_}", rows(d, 3, tt, 8, 16), ch)
+         for tt, ch in [(64, 16), (128, 128), (256, 64)]
+         for dt_, d in (("f32", f32), ("bf16", bf16))]
+    cont = rows(f32, 2, 128, 4, 8)  # state continuation (tests/test_kernels.py)
+    max_err, worst = 0.0, None
+    for label, args, ch in cases:
+        got, want = ssd.ssd_scan(*args, chunk=ch), ssd.ssd_scan_plain(*args)
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            if not torch.allclose(g, w, atol=SSD_TOL, rtol=SSD_TOL) or g.shape != w.shape:
+                raise AssertionError(f"ssd_scan {label}: kernel differs from its plain "
+                                     f"version (max abs err {err})")
+            if err > max_err:
+                max_err, worst = err, label
+    x, dt, a, b, c, _ = cont
+    y_full, h_full = ssd.ssd_scan(x, dt, a, b, c, chunk=32)
+    y1, h1 = ssd.ssd_scan(x[:, :64], dt[:, :64], a, b[:, :64], c[:, :64], chunk=32)
+    y2, h2 = ssd.ssd_scan(x[:, 64:], dt[:, 64:], a, b[:, 64:], c[:, 64:], h1, chunk=32)
+    for g, w in ((y2, y_full[:, 64:]), (h2, h_full)):
+        if not torch.allclose(g, w, atol=1e-4, rtol=1e-4):
+            raise AssertionError("ssd_scan: state continuation differs from one scan")
+
+    main = cases[0][1]
+    nbytes = ssd_bytes(main)
+    copies = [main] + [heads(bf16, nb, t, nh, p, n) for _ in range(max(1, (96 << 20) // nbytes))]
+    ms, call_ms = _time_ms(lambda *a_: ssd.ssd_scan(*a_, chunk=chunk), copies, 20)
+    plain_ms, plain_call_ms = _time_ms(ssd.ssd_scan_plain, copies, 3)
+    flops = ssd_flops(nb, nh, t, chunk, n, p)
+    q = min(chunk, t)
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+    return {
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:90", "launches": 0, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+        "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+        "shape": [list(v.shape) if v is not None else None for v in main],
+        "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms, "flops": flops, "bytes": nbytes,
+        # the kernel's FMA work (the whole q x q block) over the f32 rate
+        "fp32_fma_us": 1e6 * 2 * nb * nh * t * (q * (n + p) + 2 * n * p) / FP32_FLOP_PER_S,
+        "cases": len(cases) + 1, "worst_case": worst, "tol": SSD_TOL,
+    }
+
+
 # ---------------------------------------------------- phases 2-4: datapath
 
 def write_stream(arr, data, ops) -> None:
@@ -455,18 +599,144 @@ def card_vs_cpu(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 6: serving
+
+def mamba2_model(seed: int, ph: Phase):
+    """``mamba2-1.3b`` at full width on the card, random weights from
+    ``seed``, warmed up (cuBLAS plans, the caching allocator) by one short
+    serving run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("mamba2-1.3b")
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    ph.info["init_s"] = time.perf_counter() - t
+    rng = np.random.default_rng(seed + 1)
+    warm = [rng.integers(0, cfg.vocab, (SERVE["prompt"],)) for _ in range(SERVE["batch"])]
+    serve(model, warm, batch=SERVE["batch"], gen_len=2)
+    ph.info.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                    "params": sum(w.numel() for w in model.parameters())})
+    return model
+
+
+def mamba2_serve(model, seed: int, ph: Phase):
+    """Serve ``SERVE`` through the port's serve loop; check the logits are
+    finite and of the right shape and the tokens in range.  Returns the
+    serving stats."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import greedy, serve
+
+    vocab = model.cfg.vocab
+    rng = np.random.default_rng(seed)
+    queue = [rng.integers(0, vocab, (SERVE["prompt"],)) for _ in range(SERVE["requests"])]
+    finite = []
+
+    def choose(logits):
+        if logits.shape != (SERVE["batch"], 1, vocab):
+            raise AssertionError(f"logits of shape {tuple(logits.shape)}")
+        finite.append(torch.isfinite(logits).all())
+        return greedy(logits)
+
+    torch.cuda.reset_peak_memory_stats()
+    st = serve(model, queue, batch=SERVE["batch"], gen_len=SERVE["gen"], choose=choose)
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite logits while serving")
+    outs = np.stack(st.outputs)
+    if outs.shape != (SERVE["requests"], SERVE["gen"]) or outs.min() < 0 or outs.max() >= vocab:
+        raise AssertionError(f"generated tokens of shape {outs.shape} out of range")
+    ph.info.update({
+        **SERVE, "requests_served": st.requests, "prefill_calls": st.prefill_calls,
+        "prefill_tokens": st.prefill_tokens, "decode_tokens": st.decode_tokens,
+        "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+        "prefill_tok_s": st.prefill_tok_s, "decode_tok_s": st.decode_tok_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    })
+    return st
+
+
+def serve_profile(model, seed: int, ph: Phase) -> None:
+    """Device time by kernel (``torch.profiler``) over one prefill call and
+    one decode step at the serving shape, against the wall time of each;
+    the difference is the share of the call the card sat idle."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (SERVE["batch"], SERVE["prompt"])))
+    toks = toks.cuda()
+    _, cache = model.prefill(toks)
+    nxt = toks[:, -1:]
+    for name, call in (("prefill", lambda: model.prefill(toks)),
+                       ("decode_step", lambda: model.decode_step(cache, nxt))):
+        call()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+        ph.info[name] = {
+            "wall_ms": wall_ms, "device_ms": dev_ms, "idle_share": 1 - dev_ms / wall_ms,
+            "kernels": sum(e.count for e in ev),
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+        }
+
+
+def decode_matches_prefill(seed: int, ph: Phase) -> None:
+    """In f32 at full width: prefill(t) then k decode steps against
+    prefill(t + i) for each step i."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dc.replace(get_config("mamba2-1.3b"), dtype="float32")
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+    b, t, k = DECODE_CHECK["batch"], DECODE_CHECK["t"], DECODE_CHECK["k"]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (b, t + k))).cuda()
+    logits, cache = model.prefill(toks[:, :t])
+    errs = []
+    for i in range(k):
+        logits, cache = model.decode_step(cache, toks[:, t + i : t + i + 1])
+        want, _ = model.prefill(toks[:, : t + i + 1])
+        errs.append(float((logits - want).abs().max()))
+        if not (torch.isfinite(logits).all()
+                and torch.allclose(logits, want, atol=DECODE_TOL, rtol=DECODE_TOL)):
+            raise AssertionError(f"decode step {i} differs from prefill({t + i + 1}): "
+                                 f"max abs err {errs[-1]}")
+    ph.info.update({"dtype": cfg.dtype, "batch": b, "t": t, "k": k, "tol": DECODE_TOL,
+                    "max_abs_err": errs, "logit_abs_max": float(want.abs().max())})
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
     src = ROOT / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc" / "codec.cu").is_file():
+    csrc = src / "repro_torch" / "kernels" / "csrc"
+    if not all((csrc / f).is_file() for f in ("codec.cu", "ssd_scan.cu")):
         return _die(f"no repro_torch package under {src}: run from a checkout")
     sys.path.insert(0, str(src))
     import torch
 
     if not torch.cuda.is_available():
         return _die("torch.cuda.is_available() is false: this test needs a GPU")
-    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import CODEC_KERNELS, _build, launch_counts, reset_launch_counts
 
     def smi(query: str) -> str:
         return subprocess.run(
@@ -491,12 +761,15 @@ def main() -> int:
 
     with Phase("kernels") as ph:
         rows = kernel_checks(alu_per_load, int32_ops_per_s)
+        ssd_row = ssd_checks()
         ph.info["gpu"] = gpu
         ph.info["kernels"] = [
             {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
                                "plain_call_ms", "bytes_us", "ops_us", "bound_by",
                                "cases")}
             for r in rows]
+        ph.info["ssd_scan"] = {k: v for k, v in ssd_row.items()
+                               if k not in ("route", "source", "replaces", "launches")}
 
     reset_launch_counts()  # the main path's launches start here
     with Phase("raid5") as ph:
@@ -516,16 +789,37 @@ def main() -> int:
     with Phase("crash") as ph:
         crash_recovery("cuda", FULL, SEED, ph)
     gc.collect()
-    main_path = launch_counts()  # read just after the main path
-    idle = [k for k, v in main_path.items() if v == 0]
+    main_path = launch_counts()  # read just after the datapath's phases
+    idle = [k for k in CODEC_KERNELS if main_path[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"codec kernels never launched on the datapath: {idle}")
 
     with Phase("card_vs_cpu") as ph:
         ph.info["result"] = card_vs_cpu(SEED)
+    gc.collect()
+
+    with Phase("mamba2_setup") as ph:
+        model = mamba2_model(SEED, ph)
+    reset_launch_counts()  # the serving path's launches start here
+    with Phase("mamba2_serve") as ph:
+        st = mamba2_serve(model, SEED, ph)
+    serving = launch_counts()  # read just after the serving path
+    want = model.cfg.n_layers * st.prefill_calls
+    if serving["ssd_scan"] != want or want == 0:
+        raise AssertionError(f"ssd_scan launched {serving['ssd_scan']} times while serving, "
+                             f"want {model.cfg.n_layers} per prefill call ({want})")
+    with Phase("mamba2_profile") as ph:
+        serve_profile(model, SEED, ph)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("mamba2_decode_check") as ph:
+        decode_matches_prefill(SEED, ph)
 
     for r in rows:
         r["launches"] = main_path[r["name"]]
+    ssd_row["launches"] = serving["ssd_scan"]
+    rows.append(ssd_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})

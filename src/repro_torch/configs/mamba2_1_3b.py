@@ -1,0 +1,10 @@
+"""Mamba2-1.3B: attention-free SSD (state-space duality) stack.
+[arXiv:2405.21060; unverified]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b", family="ssm",
+    n_layers=48, d_model=2048, n_heads=1, n_kv_heads=1,
+    d_ff=0, vocab=50280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2, ssm_conv=4, ssm_chunk=128,
+)

@@ -1,10 +1,11 @@
-"""Build, load and launch the CUDA codec kernels (``csrc/codec.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), at first use.  The library lands in
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-sources and flags, so an edit rebuilds and an unchanged tree reuses it.  It is
-loaded with ``ctypes``: pointers and the stream pass as ``c_void_p``, sizes as
+``nvcc`` compiles each source to an object, all of them at once, and links
+the objects into one shared library with a plain C interface, for ``sm_90a``
+(Hopper), at first use.  The library lands in ``build/repro_torch/`` at the
+root of the checkout, named by a hash of the sources and flags, so an edit
+rebuilds and an unchanged tree reuses it.  It is loaded with ``ctypes``:
+pointers and the stream pass as ``c_void_p``, sizes as
 ``c_int``/``c_longlong``.
 
 A missing ``nvcc`` or a failed build raises; there is no fallback.
@@ -23,11 +24,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "codec.cu",)
+SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -43,7 +44,7 @@ def find_nvcc() -> str:
     for c in cands:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found: the CUDA codec kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _digest() -> str:
@@ -55,37 +56,47 @@ def _digest() -> str:
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"libcodec_{_digest()}.so"
+    return BUILD_DIR / f"libkernels_{_digest()}.so"
 
 
 def build(verbose: bool = False) -> Path:
     """Compile the sources unless the hashed library already exists.
 
-    The compiler writes to a temporary name and the result is renamed into
-    place, so concurrent builders never load a half-written library.  With
-    ``verbose`` the compiler's register/shared-memory report is printed."""
+    One ``nvcc -c`` per source runs in parallel; one more links the objects.
+    Everything is written under temporary names and the library is renamed
+    into place, so concurrent builders never load a half-written library.
+    With ``verbose`` the compiler's register/shared-memory report is
+    printed."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                 "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        results = [(c, p, *p.communicate()) for c, p in zip(cmds, procs)]
+        lib = Path(tmp) / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        for cmd, proc, _, err in results:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            if verbose:
+                print(err, end="")
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(link)}\n{res.stderr}")
+        os.replace(lib, out)
     return out
 
 
 def load() -> ctypes.CDLL:
-    """The loaded codec library (built on first call)."""
+    """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -95,6 +106,11 @@ def load() -> ctypes.CDLL:
             lib.codec_xor_reduce.restype = i
             lib.codec_gf256_matmul.argtypes = [vp, vp, vp, i, i, ll, ll, i, vp]
             lib.codec_gf256_matmul.restype = i
+            lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp,
+                                     i, i, i, i, i, i, vp, vp]
+            lib.ssd_scan.restype = i
+            lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+            lib.ssd_scan_smem_bytes.restype = ll
             _lib = lib
         return _lib
 

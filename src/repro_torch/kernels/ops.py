@@ -1,9 +1,10 @@
-"""Codec entry points the stripe codec calls.
+"""Kernel entry points: the stripe codec's and the Mamba-2 SSD scan.
 
-Each op takes int32-packed lanes as torch tensors; the tensor's device picks
-the path (a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel).  Outputs have exactly the input's ``n`` lanes: the kernels mask the
-ragged tail themselves, so there is no lane padding.
+Each op takes torch tensors; the tensor's device picks the path (a CPU
+tensor runs the plain version, a CUDA tensor launches the kernel).  The codec
+ops take int32-packed lanes, and their outputs have exactly the input's ``n``
+lanes: the kernels mask the ragged tail themselves, so there is no lane
+padding.
 
 Byte-level helpers convert between uint8 chunk buffers and the int32-packed
 lanes on the host, as free numpy dtype views.
@@ -18,6 +19,7 @@ import torch
 from repro_torch.core import gf
 from repro_torch.kernels.gf256_matmul import gf256_matmul, gf256_matmul_batch
 from repro_torch.kernels.parity_xor import parity_xor, parity_xor_batch
+from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, ssd_scan
 
 
 def rs_parity_coeff(k: int, m: int, device: str | torch.device) -> torch.Tensor:
@@ -110,3 +112,10 @@ def pack_bytes_np(data_u8: np.ndarray) -> np.ndarray:
 def unpack_bytes_np(data_i32: np.ndarray) -> np.ndarray:
     """(..., n) int32 -> (..., 4*n) uint8, a free dtype view."""
     return np.ascontiguousarray(data_i32).view(np.uint8)
+
+
+# ------------------------------------------------------------- Mamba-2 SSD
+
+def ssd_chunk_scan(x, dt, a, b, c, h0=None, *, chunk: int = DEFAULT_CHUNK):
+    """Mamba-2 SSD scan; see kernels/ssd_scan.py.  Returns (y, h_final)."""
+    return ssd_scan(x, dt, a, b, c, h0, chunk=chunk)

@@ -1,10 +1,12 @@
-"""Plain torch versions of the codec kernels.
+"""Plain torch versions of the CUDA kernels.
 
-Each function computes, in int32 torch ops, exactly what its CUDA kernel in
-``csrc/codec.cu`` computes.  The wrappers in ``parity_xor.py`` and
-``gf256_matmul.py`` use them for tensors that lie on the CPU (the tests), and
-the chip smoke test holds each kernel against them on the card.  Nothing on
-the datapath calls them for a CUDA tensor.
+The codec functions compute, in int32 torch ops, exactly what their kernels
+in ``csrc/codec.cu`` compute.  ``ssd_scan_ref`` is the sequential f32
+recurrence that ``csrc/ssd_scan.cu`` computes in chunked form.  The wrappers
+(``parity_xor.py``, ``gf256_matmul.py``, ``ssd_scan.py``) use them for
+tensors that lie on the CPU (the tests), and the chip smoke test holds each
+kernel against them on the card.  Nothing on the datapath or the model path
+calls them for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -46,3 +48,30 @@ def gf256_matmul_batch_ref(coeff: torch.Tensor, data: torch.Tensor) -> torch.Ten
         for i in range(k):
             out[:, j] ^= gf.swar_gf_scale(data[:, i], row[i])
     return out
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,   # (bh, t, p)
+    dt: torch.Tensor,  # (bh, t)      softplus'd step sizes (>0)
+    a: torch.Tensor,   # (bh,)        per-row negative decay rate (A < 0)
+    b: torch.Tensor,   # (bh, t, n)   input->state projection
+    c: torch.Tensor,   # (bh, t, n)   state->output projection
+    h0: torch.Tensor | None = None,  # (bh, n, p) initial state
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential reference for the Mamba-2 SSD recurrence.
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * (b_t outer x_t)
+    y_t = c_t @ h_t
+    Returns (y (bh, t, p), h_final (bh, n, p)), all math in float32.
+    """
+    bh, t, p = x.shape
+    n = b.shape[-1]
+    x, dt, a, b, c = (v.float() for v in (x, dt, a, b, c))
+    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for i in range(t):
+        decay = torch.exp(dt[:, i] * a)[:, None, None]
+        h = decay * h + dt[:, i, None, None] * (b[:, i, :, None] * x[:, i, None, :])
+        ys.append(torch.einsum("bn,bnp->bp", c[:, i], h))
+    return torch.stack(ys, 1), h

@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core import raid
 from repro_torch.kernels import gf256_matmul as gfm
-from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+from repro_torch.kernels import CODEC_KERNELS, launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels import parity_xor as px
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -46,8 +47,9 @@ def test_kernels_match_plain_versions(cuda, n):
                            ref.gf256_matmul_batch_ref(coeff, x))
         assert torch.equal(gfm.gf256_matmul(coeff, x[0]), ref.gf256_matmul_ref(coeff, x[0]))
     torch.cuda.synchronize()
-    assert launch_counts() == {"parity_xor_batch": 1, "parity_xor": 1,
-                               "gf256_matmul_batch": 2, "gf256_matmul": 2}
+    counts = launch_counts()
+    assert {k: counts[k] for k in CODEC_KERNELS} == {
+        "parity_xor_batch": 1, "parity_xor": 1, "gf256_matmul_batch": 2, "gf256_matmul": 2}
 
 
 def test_unaligned_views_take_the_scalar_path(cuda):
@@ -85,3 +87,57 @@ def test_codec_on_card_equals_cpu(cuda, scheme, n):
         surv = np.ascontiguousarray(code[:, list(roles)])
         assert np.array_equal(dev.decode_batch_np(surv, roles), data), roles
         assert np.array_equal(dev.decode_np(surv[0], roles), data[0]), roles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["rows", "heads"])
+def test_ssd_scan_matches_plain_version(cuda, dtype, layout):
+    """The SSD kernel against the sequential plain version on the card, with
+    and without h0, over three chunks of small shapes.  Both compute in
+    f32 from the same input values and differ only in summation order
+    (chunked vs step by step), hence 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    bsz, t, h, p, n, chunk = 2, 96, 3, 16, 32, 32
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    def uniform(lo, hi, *shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
+
+    if layout == "heads":  # b, c shared by the heads of a batch row
+        x = normal(bsz, t, h, p).to(dtype)
+        b, c = (normal(bsz, t, n).to(dtype) for _ in range(2))
+        dt, a, h0 = uniform(0.01, 0.2, bsz, t, h), -uniform(0.5, 2.0, h), normal(bsz, h, n, p)
+    else:
+        x = normal(bsz * h, t, p).to(dtype)
+        b, c = (normal(bsz * h, t, n).to(dtype) for _ in range(2))
+        dt, a = uniform(0.01, 0.2, bsz * h, t), -uniform(0.5, 2.0, bsz * h)
+        h0 = normal(bsz * h, n, p)
+    reset_launch_counts()
+    for init in (None, h0):
+        y, hf = ssd.ssd_scan(x, dt, a, b, c, init, chunk=chunk)
+        want_y, want_h = ssd.ssd_scan_plain(x, dt, a, b, c, init)
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(hf, want_h, atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == 2
+
+
+def test_ssd_scan_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 64, 8, device=cuda)
+    dt = torch.full((2, 64), 0.1, device=cuda)
+    a = -torch.ones(2, device=cuda)
+    b = torch.zeros(2, 64, 16, device=cuda)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, b, b)  # p strided
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, a, b.cpu(), b)  # mixed devices
+    with pytest.raises(ValueError):  # n > 128
+        ssd.ssd_scan(torch.zeros(2, 256, 8, device=cuda), dt.repeat(1, 4), a,
+                     torch.zeros(2, 256, 256, device=cuda), torch.zeros(2, 256, 256, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # q = n = p = 128
+        wide = torch.zeros(2, 128, 128, device=cuda)
+        ssd.ssd_scan(wide, dt.repeat(1, 2), a, wide, wide)
