@@ -16,9 +16,11 @@ failing on the first error:
    bytes over the memory rate and the integer instructions of its compiled
    main loop (``cuobjdump -sass``) over the card's INT32 rate.  The SSD scan
    against its plain sequential version (tolerance ``SSD_TOL``) at the
-   serving shape in bf16 and f32, with an initial state, at t < chunk and
-   at the CPU tests' shapes; timed beside its bound (bytes over the memory
-   rate, or its FLOPs over the bf16 tensor-core rate);
+   serving shape in bf16 and f32, with an initial state, at t < chunk, at
+   the CPU tests' shapes, at q = n = p = 128 and on an unaligned view, and
+   its C B^T kernel against its own; their SASS must hold tensor-core
+   instructions; timed beside their bounds (bytes over the memory rate, or
+   FLOPs over the bf16 tensor-core rate);
 2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
    blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
    Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
@@ -69,13 +71,12 @@ ROOT = Path(__file__).resolve().parent
 # the loop: the time this gives is a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM_CLOCK = 64
-# The SSD scan's operations are floating-point: its bound counts its FLOPs
-# over the dense bf16 tensor-core rate (NVIDIA data sheet; its timed inputs
-# are bf16), the least time the card could take for them; FP32_FLOP_PER_S,
-# the CUDA cores' f32 rate, is printed beside it for the FMA loops the
-# kernel runs now.
+# The SSD kernels' operations are floating-point: their bound counts the
+# FLOPs the function needs over the dense bf16 tensor-core rate (NVIDIA data
+# sheet; the timed inputs are bf16), the least time the card could take for
+# them; the FLOPs the kernels issue on the tensor cores are printed beside
+# it at the same rate.
 BF16_TENSOR_FLOP_PER_S = 989e12
-FP32_FLOP_PER_S = 67e12
 ALU_OPCODES = frozenset({
     "LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS",
     "BMSK", "SGXT", "FLO", "POPC", "BREV",
@@ -96,10 +97,14 @@ FULL = dict(zones=12, zone_cap_blocks=16384, logical_blocks=65536, group=256)
 # prompt and generated tokens; the decode check's prompt t and steps k.
 SERVE = dict(requests=8, batch=4, prompt=1024, gen=32)
 DECODE_CHECK = dict(batch=2, t=250, k=3)
-# The SSD kernel and its plain version compute in f32 from the same input
-# values (bf16 inputs are widened exactly); they differ in summation order
-# (chunked products vs a step-by-step recurrence) and in exp of cumulative
-# sums vs products of per-step decays: ~1e-5 relative at these shapes.
+# The SSD kernel multiplies on the tensor cores: bf16 inputs as they are,
+# f32 inputs and the operands it computes in f32 (the masked decay matrix,
+# the state, B scaled by the decay weights) as hi + lo bf16 halves, with
+# exact products and f32 sums -- about 16 bits of each operand.  Its plain
+# version is the step-by-step f32 recurrence on the same input values; they
+# also differ in summation order and in exp of cumulative sums vs products
+# of per-step decays: ~1e-4 of the outputs' scale at the serving shape
+# (the kernel's arithmetic emulated in tests/test_torch_ssd.py).
 SSD_TOL = 1e-3
 # prefill + decode vs a longer prefill, in f32 at full width: the two paths
 # sum in different orders through 48 layers (the reference's decode test
@@ -370,11 +375,30 @@ def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> lis
 
 
 def ssd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
-    """FLOPs the scan needs: per chunk and row, the lower triangle of C B^T
-    and of its product with dt*X, then C h_prev and the state update."""
+    """FLOPs the scan needs.  Per batch row and chunk, the lower triangle of
+    C B^T: b and c are shared by the ``nh`` heads of a batch row, so G is
+    counted once per batch row, not per head.  Per head and chunk, the
+    triangle's product with dt*X, C h_prev and the state update."""
     q = min(chunk, t)
     tri = q * (q + 1) // 2
-    return nb * nh * (t // q) * (2 * tri * n + 2 * tri * p + 4 * q * n * p)
+    return (t // q) * (nb * 2 * tri * n + nb * nh * (2 * tri * p + 4 * q * n * p))
+
+
+def ssd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int,
+                     f32: bool = False) -> int:
+    """FLOPs the two kernels issue on the tensor cores, as m16n8k16 products
+    of 4,096 FLOP.  Per block (batch, head, 32 columns of p) and chunk: C
+    h_prev over all (q/16) x (n/16) tiles, M X over the tiles on and below
+    the diagonal and the state update over (n/16) x (q/16), each tile with
+    two products (hi and lo halves; three with f32 inputs) per 8 columns.
+    Per batch row and chunk, G's tiles on and below the diagonal, with one
+    product per 8 columns (three with f32 inputs)."""
+    q = min(chunk, t)
+    qt, nt, slices = -(-q // 16), -(-n // 16), -(-p // 32)
+    tri = qt * (qt + 1) // 2
+    per_block = 4 * (3 if f32 else 2) * (qt * nt + tri + nt * qt)
+    per_gram = tri * nt * 2 * (3 if f32 else 1)
+    return 4096 * (t // q) * (nb * nh * slices * per_block + nb * per_gram)
 
 
 def ssd_bytes(args) -> int:
@@ -388,15 +412,41 @@ def ssd_bytes(args) -> int:
     return ins + 4 * nb * t * nh * p + 4 * nb * nh * n * p
 
 
-def ssd_checks() -> dict:
-    """Hold the SSD kernel against its plain sequential version on the card;
-    time both at the serving shape.  Returns the ``ssd_scan`` row."""
+def tensor_core_instructions(library: Path) -> dict[str, int]:
+    """HMMA/HGMMA instructions in the SASS of each SSD kernel instance
+    (``cuobjdump -sass``); raises if one has none."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        kernel = re.search(r"(ssd_scan_kernel|ssd_chunk_gram_kernel)I(\w+?)Lb([01])E", name)
+        if kernel is None:
+            continue
+        key = f"{kernel[1]}<{'bf16' if 'bfloat16' in kernel[2] else 'f32'}," \
+              f"{'async' if kernel[3] == '1' else 'scalar'}>"
+        out[key] = len(re.findall(r"\bH(?:G)?MMA\.", body))
+    if not out or not all(out.values()):
+        raise RuntimeError(f"SSD kernels without tensor-core instructions in their SASS: {out}")
+    return out
+
+
+def ssd_checks() -> list[dict]:
+    """Hold the SSD kernels against their plain versions on the card; time
+    both at the serving shape.  Returns the ``ssd_scan`` and
+    ``ssd_chunk_gram`` rows."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(11)
     cfg = get_config("mamba2-1.3b")  # its prefill's scan at the serving shape
@@ -404,11 +454,13 @@ def ssd_checks() -> dict:
     nh, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
     chunk = cfg.ssm_chunk
 
-    def heads(dtype, nb, t, nh, p, n, h0=False):
+    def heads(dtype, nb, t, nh, p, n, h0=False, skew=0):
         """Operands as ``mamba_apply`` gives them: x, b, c strided views of
-        one (B, T, H*P + 2N) conv output; dt (B, T, H); a (H,)."""
-        conv = torch.from_numpy(rng.standard_normal((nb, t, nh * p + 2 * n), np.float32))
-        conv = conv.to("cuda", dtype)
+        one (B, T, H*P + 2N) conv output; dt (B, T, H); a (H,).  ``skew``
+        starts the conv output that many elements into its buffer."""
+        wide = nh * p + 2 * n
+        conv = torch.from_numpy(rng.standard_normal(nb * t * wide + skew).astype(np.float32))
+        conv = conv.to("cuda", dtype)[skew:].view(nb, t, wide)
         x = conv[..., : nh * p].reshape(nb, t, nh, p)
         dt = torch.from_numpy(rng.uniform(0.01, 0.2, (nb, t, nh)).astype(np.float32)).cuda()
         a = -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,)).astype(np.float32)).cuda()
@@ -432,7 +484,13 @@ def ssd_checks() -> dict:
         ("t<chunk f32 h0", heads(f32, 2, 100, 8, p, n, h0=True), chunk),
     ] + [(f"cpu-test t={tt} chunk={ch} {dt_}", rows(d, 3, tt, 8, 16), ch)
          for tt, ch in [(64, 16), (128, 128), (256, 64)]
-         for dt_, d in (("f32", f32), ("bf16", bf16))]
+         for dt_, d in (("f32", f32), ("bf16", bf16))] + [
+        # shapes the earlier FMA kernel refused (its shared memory ran out)
+        ("q=n=p=128 bf16 h0", heads(bf16, 2, 256, 4, 128, 128, h0=True), 128),
+        ("q=n=p=128 f32", heads(f32, 2, 256, 4, 128, 128), 128),
+        # views off a 16-byte boundary take the scalar load path
+        ("unaligned bf16 h0", heads(bf16, 2, 256, 8, p, n, h0=True, skew=1), chunk),
+    ]
     cont = rows(f32, 2, 128, 4, 8)  # state continuation (tests/test_kernels.py)
     max_err, worst = 0.0, None
     for label, args, ch in cases:
@@ -452,16 +510,26 @@ def ssd_checks() -> dict:
         if not torch.allclose(g, w, atol=1e-4, rtol=1e-4):
             raise AssertionError("ssd_scan: state continuation differs from one scan")
 
+    # G = C B^T alone, against its plain version, on every case's b and c.
+    gram_err = 0.0
+    for label, (_, _, _, b, c, _), ch in cases:
+        got, want = ssd.chunk_gram(b, c, chunk=ch), ref.ssd_chunk_gram_ref(b, c, min(ch, b.shape[1]))
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
+            raise AssertionError(f"ssd_chunk_gram {label}: kernel differs from its plain "
+                                 f"version (max abs err {err})")
+        gram_err = max(gram_err, err)
+
     main = cases[0][1]
     nbytes = ssd_bytes(main)
     copies = [main] + [heads(bf16, nb, t, nh, p, n) for _ in range(max(1, (96 << 20) // nbytes))]
     ms, call_ms = _time_ms(lambda *a_: ssd.ssd_scan(*a_, chunk=chunk), copies, 20)
     plain_ms, plain_call_ms = _time_ms(ssd.ssd_scan_plain, copies, 3)
     flops = ssd_flops(nb, nh, t, chunk, n, p)
-    q = min(chunk, t)
+    tensor_flops = ssd_tensor_flops(nb, nh, t, chunk, n, p)
     byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
-    return {
+    scan_row = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:90", "launches": 0, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
@@ -469,10 +537,42 @@ def ssd_checks() -> dict:
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
         "shape": [list(v.shape) if v is not None else None for v in main],
         "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms, "flops": flops, "bytes": nbytes,
-        # the kernel's FMA work (the whole q x q block) over the f32 rate
-        "fp32_fma_us": 1e6 * 2 * nb * nh * t * (q * (n + p) + 2 * n * p) / FP32_FLOP_PER_S,
+        "bound_share": max(byte_ms, op_ms) / ms,
+        # what the two kernels issue on the tensor cores (split halves and
+        # padding included), its time at the dense bf16 rate, and its rate
+        "tensor_flops": tensor_flops,
+        "tensor_us": 1e6 * tensor_flops / BF16_TENSOR_FLOP_PER_S,
+        "tensor_flop_per_s": tensor_flops / (ms * 1e-3),
         "cases": len(cases) + 1, "worst_case": worst, "tol": SSD_TOL,
     }
+
+    # G alone at the serving shape: b, c in, the tiles out; the library call
+    # is one batched matmul of the chunks (the whole q x q block, bf16 out).
+    def gram_args():
+        return heads(bf16, nb, t, 1, p, n)[3:5]
+
+    gb, gc = gram_args()
+    gram = ssd.chunk_gram(gb, gc, chunk=chunk)
+    g_bytes = 2 * gb.numel() * gb.element_size() + 4 * gram.numel()
+    g_flops = (t // chunk) * nb * chunk * (chunk + 1) * n
+    gcopies = [(gb, gc)] + [gram_args() for _ in range(max(1, (96 << 20) // g_bytes))]
+    g_ms, g_call_ms = _time_ms(lambda b_, c_: ssd.chunk_gram(b_, c_, chunk=chunk), gcopies, 50)
+    g_plain_ms, _ = _time_ms(lambda b_, c_: ref.ssd_chunk_gram_ref(b_, c_, chunk), gcopies, 10)
+    lib_ms, _ = _time_ms(lambda b_, c_: torch.matmul(c_.unflatten(1, (-1, chunk)),
+                                                      b_.unflatten(1, (-1, chunk)).transpose(-1, -2)),
+                         gcopies, 50)
+    g_byte_ms = 1e3 * g_bytes / HBM_BYTES_PER_S
+    g_op_ms = 1e3 * g_flops / BF16_TENSOR_FLOP_PER_S
+    gram_row = {
+        "name": "ssd_chunk_gram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:52", "launches": 0, "max_abs_err": gram_err,
+        "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": max(g_byte_ms, g_op_ms),
+        "bound_by": "bytes" if g_byte_ms >= g_op_ms else "operations", "library_ms": lib_ms,
+        "call_ms": g_call_ms, "shape": [list(gb.shape), list(gc.shape)],
+        "bytes_us": 1e3 * g_byte_ms, "ops_us": 1e3 * g_op_ms, "cases": len(cases),
+    }
+    return [scan_row, gram_row]
 
 
 # ---------------------------------------------------- phases 2-4: datapath
@@ -756,20 +856,22 @@ def main() -> int:
     lib = _build.build(verbose=True)
     _build.load()
     alu_per_load = alu_ops_per_row_load(lib)
+    tensor_ops = tensor_core_instructions(lib)
     _emit({"phase": "build", "seconds": time.perf_counter() - t, "library": lib.name,
-           "alu_ops_per_row_load": alu_per_load})
+           "alu_ops_per_row_load": alu_per_load, "ssd_tensor_core_instructions": tensor_ops})
 
     with Phase("kernels") as ph:
         rows = kernel_checks(alu_per_load, int32_ops_per_s)
-        ssd_row = ssd_checks()
+        ssd_rows = ssd_checks()
         ph.info["gpu"] = gpu
         ph.info["kernels"] = [
             {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
                                "plain_call_ms", "bytes_us", "ops_us", "bound_by",
                                "cases")}
             for r in rows]
-        ph.info["ssd_scan"] = {k: v for k, v in ssd_row.items()
-                               if k not in ("route", "source", "replaces", "launches")}
+        for r in ssd_rows:
+            ph.info[r["name"]] = {k: v for k, v in r.items()
+                                  if k not in ("route", "source", "replaces", "launches")}
 
     reset_launch_counts()  # the main path's launches start here
     with Phase("raid5") as ph:
@@ -805,9 +907,10 @@ def main() -> int:
         st = mamba2_serve(model, SEED, ph)
     serving = launch_counts()  # read just after the serving path
     want = model.cfg.n_layers * st.prefill_calls
-    if serving["ssd_scan"] != want or want == 0:
-        raise AssertionError(f"ssd_scan launched {serving['ssd_scan']} times while serving, "
-                             f"want {model.cfg.n_layers} per prefill call ({want})")
+    for name in ("ssd_scan", "ssd_chunk_gram"):
+        if serving[name] != want or want == 0:
+            raise AssertionError(f"{name} launched {serving[name]} times while serving, "
+                                 f"want {model.cfg.n_layers} per prefill call ({want})")
     with Phase("mamba2_profile") as ph:
         serve_profile(model, SEED, ph)
     del model
@@ -818,8 +921,9 @@ def main() -> int:
 
     for r in rows:
         r["launches"] = main_path[r["name"]]
-    ssd_row["launches"] = serving["ssd_scan"]
-    rows.append(ssd_row)
+    for r in ssd_rows:
+        r["launches"] = serving[r["name"]]
+    rows += ssd_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})

@@ -106,11 +106,11 @@ def load() -> ctypes.CDLL:
             lib.codec_xor_reduce.restype = i
             lib.codec_gf256_matmul.argtypes = [vp, vp, vp, i, i, ll, ll, i, vp]
             lib.codec_gf256_matmul.restype = i
-            lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp,
+            lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                      i, i, i, i, i, i, vp, vp]
+            lib.ssd_chunk_gram.argtypes = [i, vp, vp, vp, i, i, i, i, vp, vp]
+            lib.ssd_chunk_gram.restype = i
             lib.ssd_scan.restype = i
-            lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
-            lib.ssd_scan_smem_bytes.restype = ll
             _lib = lib
         return _lib
 

@@ -2,7 +2,8 @@
 
 The codec functions compute, in int32 torch ops, exactly what their kernels
 in ``csrc/codec.cu`` compute.  ``ssd_scan_ref`` is the sequential f32
-recurrence that ``csrc/ssd_scan.cu`` computes in chunked form.  The wrappers
+recurrence that ``csrc/ssd_scan.cu`` computes in chunked form, and
+``ssd_chunk_gram_ref`` the per-chunk C B^T its first kernel writes.  The wrappers
 (``parity_xor.py``, ``gf256_matmul.py``, ``ssd_scan.py``) use them for
 tensors that lie on the CPU (the tests), and the chip smoke test holds each
 kernel against them on the card.  Nothing on the datapath or the model path
@@ -75,3 +76,22 @@ def ssd_scan_ref(
         h = decay * h + dt[:, i, None, None] * (b[:, i, :, None] * x[:, i, None, :])
         ys.append(torch.einsum("bn,bnp->bp", c[:, i], h))
     return torch.stack(ys, 1), h
+
+
+def ssd_chunk_gram_ref(b: torch.Tensor, c: torch.Tensor, q: int) -> torch.Tensor:
+    """G = C B^T of each chunk of q steps of b, c (nb, t, n), in f32, laid
+    out as the ``ssd_chunk_gram`` kernel writes it: the 16 x 16 tiles (i, j)
+    with j <= i of G padded to a multiple of 16, in row-major order, and in
+    each tile lane l = 4 g + k holding the 8 values at rows (g, g+8) x
+    columns (2k, 2k+1, 8+2k, 9+2k) as [(g,2k), (g,2k+1), (g+8,2k),
+    (g+8,2k+1), (g,8+2k), (g,9+2k), (g+8,8+2k), (g+8,9+2k)].
+    Returns (nb, t // q, tiles, 32, 8)."""
+    nb, t, n = b.shape
+    nc, q16 = t // q, -(-q // 16) * 16
+    bc, cc = (torch.nn.functional.pad(v.float().reshape(nb, nc, q, n), (0, 0, 0, q16 - q))
+              for v in (b, c))
+    qt = q16 // 16
+    tiles = (cc @ bc.transpose(-1, -2)).reshape(nb, nc, qt, 16, qt, 16).transpose(3, 4)
+    ii, jj = torch.tril_indices(qt, qt)
+    low = tiles[:, :, ii, jj].reshape(nb, nc, len(ii), 2, 8, 2, 4, 2)  # (rh, g, ch, k, e)
+    return low.permute(0, 1, 2, 4, 6, 5, 3, 7).reshape(nb, nc, len(ii), 32, 8).contiguous()

@@ -1,11 +1,13 @@
-"""Chunked Mamba-2 SSD scan: the wrapper of the ``ssd_scan`` kernel.
+"""Chunked Mamba-2 SSD scan: the wrapper of the ``ssd_scan`` kernels.
 
 The SSD recurrence  h_t = exp(dt_t*a) h_{t-1} + dt_t (b_t (x) x_t),
 y_t = c_t . h_t  is the compute hot spot of Mamba-2 prefill.  The device of
 the tensors picks the path: CPU tensors run the plain sequential version
-(``ref.ssd_scan_ref``); CUDA tensors launch ``ssd_scan`` from
-``csrc/ssd_scan.cu`` (one block per (batch, head) row looping over chunks of
-q steps, the f32 state in shared memory) or raise.
+(``ref.ssd_scan_ref``); CUDA tensors launch the two kernels of
+``csrc/ssd_scan.cu`` or raise: ``ssd_chunk_gram`` (G = C B^T once per batch
+row and chunk of q steps) and ``ssd_scan`` (one block per (batch, head,
+32-column slice of p) looping over the chunks on the tensor cores, the f32
+state in registers).
 
 Two layouts are taken, told apart by the rank of ``x``:
 
@@ -15,14 +17,15 @@ Two layouts are taken, told apart by the rank of ``x``:
   (B, T, N) shared by the H heads of a batch row, h0 (B, H, N, P)
   -> y (B, T, H, P), h (B, H, N, P).
 
-The kernel reads every operand through its strides (the innermost dimension
+The kernels read every operand through its strides (the innermost dimension
 of x, b and c must be contiguous), so the model's strided views pass as they
 are and b, c are never expanded per head.  x, b and c are f32 or bf16 (one
 type); dt, a and h0 are f32; y and h come back in f32.  As in the Pallas
 kernel, q = min(chunk, t) and t must be a multiple of q: ``ssd_chunked``
 pads a ragged t with dt = 0 steps before it calls here.
 
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches: ``ssd_scan`` once per scan and
+``ssd_chunk_gram`` once per scan or ``chunk_gram`` call.
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DEFAULT_CHUNK = 128
-MAX_DIM = 128              # q, n and p limits of the kernel
-MAX_SMEM_BYTES = 232_448   # dynamic shared memory one Hopper block may use
+# q, n and p limits of the kernels; at q = n = 128 the scan's block takes
+# 184,320 bytes of shared memory, inside a Hopper block's 232,448.
+MAX_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_chunk_gram": 0}
 
 
 def _geometry(x, dt, a, b, c, h0, chunk):
@@ -88,10 +92,6 @@ def _check_kernel_operands(x, b, c, h0, q, n, p):
     if max(q, n, p) > MAX_DIM:
         raise ValueError(f"ssd_scan: the CUDA kernel takes q, n, p <= {MAX_DIM}, "
                          f"got q={q}, n={n}, p={p}")
-    smem = _build.load().ssd_scan_smem_bytes(q, n, p)  # the kernel's own layout
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan: q={q}, n={n}, p={p} needs {smem} bytes "
-                         f"of shared memory, more than {MAX_SMEM_BYTES}")
     for name, v in (("x", x), ("b", b), ("c", c)):
         if v.stride(-1) != 1:
             raise ValueError(f"ssd_scan: the innermost dimension of {name} must be contiguous")
@@ -118,13 +118,50 @@ def _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p):
         sy = (y.stride(0), 0, y.stride(1))
     if y.numel() == 0 and hout.numel() == 0:
         return y, hout
+    gram = _gram_scratch(nb, t, q, dev)
     strides = (ctypes.c_longlong * 15)(*sx, *sdt, *sa, b.stride(0), b.stride(1),
                                        c.stride(0), c.stride(1), *sy)
     _build.launch("ssd_scan", _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                   b.data_ptr(), c.data_ptr(), None if h0 is None else h0.data_ptr(),
-                  y.data_ptr(), hout.data_ptr(), nb * nh, nh, t, q, n, p, strides)
+                  gram.data_ptr(), y.data_ptr(), hout.data_ptr(), nb * nh, nh, t, q, n, p,
+                  strides)
+    LAUNCHES["ssd_chunk_gram"] += 1
     LAUNCHES["ssd_scan"] += 1
     return y, hout
+
+
+def _gram_scratch(nb, t, q, device):
+    """The G tiles of (nb, t) b, c in chunks of q, as ``ref.ssd_chunk_gram_ref``
+    lays them out."""
+    qt = -(-q // 16)
+    return torch.empty((nb, t // q, qt * (qt + 1) // 2, 32, 8), dtype=torch.float32,
+                       device=device)
+
+
+def chunk_gram(b, c, *, chunk: int = DEFAULT_CHUNK):
+    """G = C B^T of each chunk of q = min(chunk, t) steps of b, c (nb, t, n):
+    its 16 x 16 tiles on and below the diagonal in the scan kernel's order,
+    (nb, t // q, tiles, 32, 8) f32 (see ``ref.ssd_chunk_gram_ref``).  The scan
+    runs this kernel itself; the entry point lets a test hold it alone."""
+    if b.ndim != 3 or c.shape != b.shape or b.dtype not in _DTYPES or c.dtype != b.dtype \
+            or b.device != c.device or b.shape[1] < 1 or chunk < 1 \
+            or b.shape[1] % min(chunk, b.shape[1]):
+        raise ValueError(f"chunk_gram: want b, c of one shape (nb, t, n), one type of "
+                         f"{list(_DTYPES)} and t % q == 0, got {tuple(b.shape)} {b.dtype}, "
+                         f"{tuple(c.shape)} {c.dtype}, chunk={chunk}")
+    nb, t, n = b.shape
+    q = min(chunk, t)
+    if b.device.type == "cpu":
+        return ref.ssd_chunk_gram_ref(b, c, q)
+    if max(q, n) > MAX_DIM or b.stride(-1) != 1 or c.stride(-1) != 1:
+        raise ValueError(f"chunk_gram: the CUDA kernel takes q, n <= {MAX_DIM} and "
+                         f"contiguous n, got q={q}, n={n}")
+    gram = _gram_scratch(nb, t, q, b.device)
+    strides = (ctypes.c_longlong * 4)(b.stride(0), b.stride(1), c.stride(0), c.stride(1))
+    _build.launch("ssd_chunk_gram", _DTYPES[b.dtype], b.data_ptr(), c.data_ptr(),
+                  gram.data_ptr(), nb, t, q, n, strides)
+    LAUNCHES["ssd_chunk_gram"] += 1
+    return gram
 
 
 def ssd_scan_plain(x, dt, a, b, c, h0=None):

@@ -124,6 +124,82 @@ def test_ssd_scan_matches_plain_version(cuda, dtype, layout):
         torch.testing.assert_close(hf, want_h, atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
     assert launch_counts()["ssd_scan"] == 2
+    assert launch_counts()["ssd_chunk_gram"] == 2
+
+
+def _conv_views(rng, cuda, dtype, bsz, t, h, p, n, skew=0):
+    """x, b, c as ``mamba_apply`` gives them: strided views of one
+    (B, T, H*P + 2N) conv output, starting ``skew`` elements into its buffer."""
+    wide = h * p + 2 * n
+    flat = torch.from_numpy(rng.standard_normal(bsz * t * wide + skew).astype(np.float32))
+    conv = flat.to(cuda, dtype)[skew:].view(bsz, t, wide)
+    return (conv[..., : h * p].reshape(bsz, t, h, p), conv[..., h * p : h * p + n],
+            conv[..., h * p + n :])
+
+
+def _dt_a_h0(rng, cuda, bsz, t, h, p, n):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (bsz, t, h)).astype(np.float32)).to(cuda)
+    a = -torch.from_numpy(rng.uniform(0.5, 2.0, (h,)).astype(np.float32)).to(cuda)
+    return dt, a, f(bsz, h, n, p)
+
+
+# Sums over n = 128 and q = 128 terms at the serving widths: the tolerance of
+# chip_smoke.py's serving-shape check (the kernel's split-bf16 arithmetic
+# lands near 1e-4 of the outputs' scale there, tests/test_torch_ssd.py).
+WIDE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n,heads", [(64, 128, 4), (128, 128, 2)])
+def test_ssd_scan_at_the_serving_widths(cuda, dtype, p, n, heads):
+    """The heads layout at the serving model's widths (q = 128, n = 128,
+    p = 64: two 32-column slices per head) with its strided conv-output
+    views, and at q = n = p = 128, which the FMA kernel refused for shared
+    memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(p + n)
+    bsz, t = 2, 256
+    x, b, c = _conv_views(rng, cuda, dtype, bsz, t, heads, p, n)
+    dt, a, h0 = _dt_a_h0(rng, cuda, bsz, t, heads, p, n)
+    for init in (None, h0):
+        y, hf = ssd.ssd_scan(x, dt, a, b, c, init, chunk=128)
+        want_y, want_h = ssd.ssd_scan_plain(x, dt, a, b, c, init)
+        torch.testing.assert_close(y, want_y, atol=WIDE_TOL, rtol=WIDE_TOL)
+        torch.testing.assert_close(hf, want_h, atol=WIDE_TOL, rtol=WIDE_TOL)
+
+
+def test_ssd_scan_unaligned_views_take_the_scalar_path(cuda):
+    """bf16 views that start off a 16-byte boundary (or have p, n not a
+    multiple of 8) are loaded element by element, and still match."""
+    rng = np.random.default_rng(9)
+    bsz, t, h, p, n = 2, 96, 3, 16, 32
+    x, b, c = _conv_views(rng, cuda, torch.bfloat16, bsz, t, h, p, n, skew=1)
+    assert x.data_ptr() % 16 != 0
+    dt, a, h0 = _dt_a_h0(rng, cuda, bsz, t, h, p, n)
+    for args in ((x, dt, a, b, c, h0), (x[..., :10], dt, a, b[..., :20], c[..., :20], None)):
+        y, hf = ssd.ssd_scan(*args, chunk=32)
+        want_y, want_h = ssd.ssd_scan_plain(*args)
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(hf, want_h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_gram_matches_plain_version(cuda, dtype):
+    """G = C B^T per chunk, alone, in the scan kernel's tile order.  bf16
+    products are exact and only the summation order differs (1e-5); f32
+    inputs go in as hi + lo bf16 halves, ~16 bits each (1e-3)."""
+    rng = np.random.default_rng(2)
+    _, b, c = _conv_views(rng, cuda, dtype, 2, 200, 1, 8, 48)
+    for chunk in (128, 100, 40):
+        reset_launch_counts()
+        got = ssd.chunk_gram(b[:, :200 // chunk * chunk], c[:, :200 // chunk * chunk],
+                             chunk=chunk)
+        want = ref.ssd_chunk_gram_ref(b[:, :200 // chunk * chunk],
+                                      c[:, :200 // chunk * chunk], chunk)
+        tol = 1e-3 if dtype == torch.float32 else 1e-5
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        assert launch_counts()["ssd_chunk_gram"] == 1
 
 
 def test_ssd_scan_refuses_what_it_cannot_take(cuda):
@@ -138,6 +214,10 @@ def test_ssd_scan_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):  # n > 128
         ssd.ssd_scan(torch.zeros(2, 256, 8, device=cuda), dt.repeat(1, 4), a,
                      torch.zeros(2, 256, 256, device=cuda), torch.zeros(2, 256, 256, device=cuda))
-    with pytest.raises(ValueError, match="shared memory"):  # q = n = p = 128
-        wide = torch.zeros(2, 128, 128, device=cuda)
-        ssd.ssd_scan(wide, dt.repeat(1, 2), a, wide, wide)
+    with pytest.raises(ValueError, match="p <= 128"):  # p past the limit
+        ssd.ssd_scan(torch.zeros(2, 128, 136, device=cuda), dt.repeat(1, 2), a,
+                     torch.zeros(2, 128, 16, device=cuda), torch.zeros(2, 128, 16, device=cuda))
+    with pytest.raises(ValueError, match="p <= 128"):  # q = 256
+        ssd.ssd_scan(torch.zeros(2, 256, 8, device=cuda), dt.repeat(1, 4), a,
+                     torch.zeros(2, 256, 16, device=cuda), torch.zeros(2, 256, 16, device=cuda),
+                     chunk=256)

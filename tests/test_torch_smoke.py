@@ -1,6 +1,8 @@
-"""``chip_smoke.py``'s count of ALU instructions in a kernel's SASS, on a
-hand-written listing in ``cuobjdump -sass`` form (the card's toolkit is not
-here).  The count sets the operations half of each kernel's bound."""
+"""``chip_smoke.py``'s reading of a kernel's SASS, on hand-written listings
+in ``cuobjdump -sass`` form (the card's toolkit is not here): the count of
+ALU instructions that sets the operations half of each codec kernel's bound,
+and the tensor-core instructions the SSD kernels must hold.  Also its FLOP
+counts of the SSD scan."""
 import importlib.util
 import subprocess
 import types
@@ -77,3 +79,58 @@ def test_alu_ops_per_row_load_raises_without_the_kernel(monkeypatch):
     monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
     with pytest.raises(RuntimeError, match="no loop"):
         smoke.alu_ops_per_row_load(Path("libcodec.so"))
+
+
+_SCAN = "115ssd_scan_kernelI13__nv_bfloat16Lb1EEEvNS_7SsdArgsE"
+_GRAM = "121ssd_chunk_gram_kernelIfLb0EEEvNS_7SsdArgsE"
+
+
+def _ssd_listing(name, body):
+    return _listing(name, body).replace("EEvPKiPi", "")
+
+
+def test_tensor_core_instructions_counts_hmma(monkeypatch):
+    smoke = _smoke()
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    sass = (_ssd_listing(_SCAN, ["LDSM.16.MT88.4 R4, [R2]",
+                                 "HMMA.16816.F32.BF16 R8, R4, R12, R8",
+                                 "HMMA.16816.F32.BF16 R16, R4, R14, R16", "EXIT"])
+            + _ssd_listing(_GRAM, ["HMMA.16816.F32.BF16 R8, R4, R12, RZ", "EXIT"])
+            + _listing("17xor_reduce_kernelILb1E", ["LOP3.LUT R1, R2, R3, R4, 0x96, !PT"]))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    assert smoke.tensor_core_instructions(Path("lib.so")) == {
+        "ssd_scan_kernel<bf16,async>": 2, "ssd_chunk_gram_kernel<f32,scalar>": 1}
+
+
+def test_tensor_core_instructions_raises_on_fma_only_kernels(monkeypatch):
+    smoke = _smoke()
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    sass = _ssd_listing(_SCAN, ["FFMA R1, R2, R3, R1", "EXIT"])
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        smoke.tensor_core_instructions(Path("lib.so"))
+
+
+def test_ssd_flops_count_g_once_per_batch_row():
+    """G = C B^T is shared by the heads of a batch row: adding heads adds
+    only their own products."""
+    smoke = _smoke()
+    q, n, p, nc = 128, 128, 64, 8
+    tri = q * (q + 1) // 2
+    per_head = nc * (2 * tri * p + 4 * q * n * p)
+    assert smoke.ssd_flops(4, 1, 1024, q, n, p) == 4 * (nc * 2 * tri * n + per_head)
+    assert smoke.ssd_flops(4, 64, 1024, q, n, p) - smoke.ssd_flops(4, 1, 1024, q, n, p) \
+        == 4 * 63 * per_head
+
+
+def test_ssd_tensor_flops_at_the_serving_shape():
+    """1,312 m16n8k16 products per block and chunk -- C h_prev over 8 x 8
+    tiles, M X over the triangle's 36 and the state update over 8 x 8, each
+    with two halves on four 8-column tiles: (64 + 36 + 64) x 8 -- and 576
+    per G (36 tiles x 8 x 2), 4,096 FLOP each."""
+    smoke = _smoke()
+    blocks, chunks, batch = 4 * 64 * 2, 8, 4
+    assert smoke.ssd_tensor_flops(4, 64, 1024, 128, 128, 64) \
+        == 4096 * chunks * (blocks * 1312 + batch * 576)
+    # f32 inputs take three products where bf16 takes two (one for G)
+    assert smoke.ssd_tensor_flops(1, 1, 128, 128, 128, 32, f32=True) == 4096 * (1968 + 1728)
