@@ -14,7 +14,20 @@ failing on the first error:
    at the datapath's shapes and at odd lane counts; timed on the card
    (profiler device time and CUDA events) beside its bound: the larger of
    bytes over the memory rate and the integer instructions of its compiled
-   main loop (``cuobjdump -sass``) over the card's INT32 rate.  The SSD scan
+   main loop (``cuobjdump -sass``) over the card's INT32 rate.  The
+   single-stripe kernels in both operand forms (CUDA tensors, and pinned
+   host memory the card maps, as the datapath runs them) at k = 2..8 and
+   the runtime instance's shapes, every RAID-6 (2+2) survivor set and
+   unaligned views, and the codec's own staged form (``encode_np`` /
+   ``decode_np`` on the card against the CPU) at k = 2..8 and every
+   survivor set; their host-operand launch is bound by bytes over the PCIe
+   link's peak rate (Gen5 x16), beside the copy engines' pinned rates,
+   measured here with one 256 MiB copy each way.  The SASS of
+   every compile-time single-stripe instance must issue all k row loads
+   before the first combine.
+   Also timed: a one-element op's launch (the floor of any launch) and the
+   whole ``encode_np`` / ``decode_np`` round trips at the Zone-Write shapes
+   (``ROUND_TRIPS``, 2,000 calls each on the host's clock).  The SSD scan
    against its plain sequential version (tolerance ``SSD_TOL``) at the
    serving shape in bf16 and f32, with an initial state, at t < chunk, at
    the CPU tests' shapes, at q = n = p = 128 and on an unaligned view, and
@@ -77,14 +90,28 @@ INT32_LANES_PER_SM_CLOCK = 64
 # them; the FLOPs the kernels issue on the tensor cores are printed beside
 # it at the same rate.
 BF16_TENSOR_FLOP_PER_S = 989e12
+# The single-stripe kernels read and write host memory across PCIe: their
+# bound counts the bytes over the link's peak rate each way.  The H100's
+# host interface is PCIe Gen5 x16 (NVIDIA data sheet): 32 GT/s per lane,
+# 16 lanes, 128b/130b line code (PCI-SIG base specification 5.0).  Packet
+# headers are not counted, so no transfer reaches it; a copy that beats it
+# fails the run.
+PCIE_BYTES_PER_S = 32e9 * 16 * (128 / 130) / 8
 ALU_OPCODES = frozenset({
     "LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS",
     "BMSK", "SGXT", "FLO", "POPC", "BREV",
 })
-# The 128-bit (aligned-row) instances of the kernels in codec.cu, which every
-# main-path shape launches, by a fragment of their mangled names.
+# The 128-bit (aligned-row) instances of the batched kernels in codec.cu, by a
+# fragment of their mangled names.  Their main loops' ALU work per row load
+# also counts the single-stripe rows' operations (the same function).
 SASS_FUNCTIONS = {"xor_reduce": "17xor_reduce_kernelILb1E",
                   "gf256_matmul": "19gf256_matmul_kernelILb1E"}
+
+# The compile-time instances of the single-stripe kernels in codec.cu: XOR of
+# k = 2..8 rows, and GF(256) (m, k) = (2, k) encodes and (k, k) decodes.
+STRIPE_INSTANCES = frozenset(
+    [f"stripe_xor<k={k}>" for k in range(2, 9)]
+    + [f"stripe_gf256<k={k},m={m}>" for k in range(2, 9) for m in {2, k}])
 
 # ZapRAID's hybrid setting (arXiv 2402.17963 Sec. 3.3/5, as encoded at
 # benchmarks/run.py hybrid_write_perf): N_s=1 small segment with C_s=8 KiB and
@@ -241,6 +268,54 @@ def alu_ops_per_row_load(library: Path) -> dict[str, float]:
     return out
 
 
+def stripe_loads_first(library: Path) -> dict[str, str]:
+    """For each compile-time, 128-bit instance of the single-stripe kernels:
+    how many of its 16-byte global loads (``LDG.E.128``) are issued before
+    the first instruction that reads a loaded register, as "before/all", in
+    the SASS.  The design puts all k row loads in flight before the first
+    combine: it raises unless every instance of ``STRIPE_INSTANCES`` issues
+    k loads, all of them before the first use."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        kernel = re.search(r"(stripe_xor_kernel|stripe_gf256_kernel)ILi(\d+)E(?:Li(\d+)E)?Lb1E",
+                           name)
+        if kernel is None or kernel[2] == "0":
+            continue
+        loaded: set[int] = set()
+        before = total = 0
+        used = False
+        for op, args in instr.findall(body):
+            operands = [a.strip() for a in args.split(",")]
+            reads = operands if op.startswith("ST") else operands[1:]
+            regs = {int(r) for a in reads for r in re.findall(r"\bR(\d+)\b", a)}
+            if not used and regs & loaded:
+                used = True
+            if op.startswith("LDG.E.128"):
+                total += 1
+                before += not used
+                base = int(re.match(r"R(\d+)", operands[0])[1])
+                loaded |= set(range(base, base + 4))
+        key = kernel[1].replace("_kernel", "") + f"<k={kernel[2]}" + \
+            (f",m={kernel[3]}>" if kernel[3] else ">")
+        out[key] = f"{before}/{total}"
+        if not before == total == int(kernel[2]):
+            raise AssertionError(f"{key}: {before} of {total} row loads issued before the "
+                                 f"first combine, want all {kernel[2]}")
+    missing = STRIPE_INSTANCES - set(out)
+    if missing:
+        raise RuntimeError(f"no {sorted(missing)} in the SASS of {library}")
+    return out
+
+
 def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
     """(device ms, call ms) per call, over ``iters`` calls cycling through
     ``args_list`` (distinct copies whose total exceeds the 50 MB L2, so
@@ -276,9 +351,334 @@ def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
     return dev_us / 1e3 / iters, call_ms
 
 
+def _time_host_ms(fn, iters: int) -> tuple[float, float]:
+    """(device ms, call ms) per call of ``fn``, a launch that returns once
+    its result is in host memory: device ms is the kernel's time from
+    ``torch.profiler`` (the link's crossings included); call ms is host-clock
+    time per call, launch to return."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    call_ms = 1e3 * (time.perf_counter() - t0) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if dev_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time for the timed calls")
+    return dev_us / 1e3 / iters, call_ms
+
+
+def link_rates() -> dict:
+    """The host link: its peak rate each way (the single-stripe kernels'
+    bound divides their bytes by it), and the pinned host <-> device copy
+    rates the copy engines reach, one 256 MiB copy each way after a warm-up
+    copy, timed with CUDA events; raises if a copy beats the peak."""
+    import torch
+
+    nbytes = 256 << 20
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host.fill_(1)
+    out = {"peak_bytes_per_s": PCIE_BYTES_PER_S, "bytes": nbytes}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[f"{name}_bytes_per_s"] = nbytes / (start.elapsed_time(end) * 1e-3)
+        if out[f"{name}_bytes_per_s"] > out["peak_bytes_per_s"]:
+            raise AssertionError(f"{name} copy at {out[f'{name}_bytes_per_s']:.4g} B/s beats "
+                                 "the PCIe Gen5 x16 peak")
+    del host, dev
+    return out
+
+
+def launch_floor(iters: int = 2000) -> dict:
+    """What one launch costs whatever the kernel: a one-element torch op's
+    device time (``torch.profiler``), its call time back to back (CUDA
+    events), and the host-clock time of the op plus a stream synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    stream = torch.cuda.current_stream()
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        x.add_(1)
+    end.record()
+    end.synchronize()
+    call_us = 1e3 * start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        x.add_(1)
+        stream.synchronize()
+    sync_us = 1e6 * (time.perf_counter() - t0) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            x.add_(1)
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()) / iters
+    return {"device_us": dev_us, "call_us": call_us, "launch_sync_us": sync_us}
+
+
+# The per-stripe round trips of StripeCodec.encode_np / decode_np at the
+# datapath's Zone-Write shapes (16 KiB chunks): RAID-5 (3+1) encode and a
+# one-erasure decode (data role 0 lost), RAID-6 (2+2) encode and a decode
+# with both data roles lost.
+ROUND_TRIPS = (("raid5", "encode", ()), ("raid5", "decode", (1, 2, 3)),
+               ("raid6", "encode", ()), ("raid6", "decode", (2, 3)))
+
+
+def codec_round_trips(iters: int = 2000, chunk_bytes: int = 16384) -> dict:
+    """Host-clock µs per ``encode_np`` / ``decode_np`` call on the card at
+    ``ROUND_TRIPS``, over ``iters`` calls after a warm-up, with the codec
+    kernels launched per call; each result is checked once.  It uses only
+    the codec's public calls, so it times any tree's ``repro_torch`` on
+    ``sys.path``."""
+    import numpy as np
+    from repro_torch.core.raid import StripeCodec, make_scheme
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for scheme, op, roles in ROUND_TRIPS:
+        codec = StripeCodec(make_scheme(scheme, 4), device="cuda")
+        k = codec.scheme.k
+        data = rng.integers(0, 256, (k, chunk_bytes), dtype=np.uint8)
+        code = np.concatenate([data, codec.encode_np(data)])
+        if op == "encode":
+            def call(d=data):
+                return codec.encode_np(d)
+        else:
+            surv = np.ascontiguousarray(code[list(roles)])
+
+            def call(s_=surv, r=roles):
+                return codec.decode_np(s_, r)
+        got = call()
+        want = code[k:] if op == "encode" else data
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{scheme} {op}_np: wrong bytes")
+        for _ in range(100):
+            call()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        us = 1e6 * (time.perf_counter() - t0) / iters
+        after = launch_counts()
+        out[f"{scheme}_{op}"] = {
+            "shape": list(code[list(roles)].shape if roles else data.shape), "us": us,
+            "launches_per_call": {n: (after[n] - before[n]) / iters
+                                  for n in after if after[n] != before[n]}}
+    return out
+
+
+def stripe_cases(rand, coeff):
+    """The single-stripe kernels' check cases as (XOR data, GF (coeff,
+    data)) lists, CUDA tensors: the main shapes, odd lane counts, k = 2..8
+    and the runtime instance's k, every RAID-6 (2+2) survivor set, RAID-6
+    at 5 drives (k = 3) and m = 3 outputs of k = 2 (runtime)."""
+    from repro_torch.core import gf
+
+    odd = (1, 4, 1023)
+    xor = [rand(3, 4096), rand(3, 16)] + [rand(3, n) for n in odd] \
+        + [rand(k, 1024) for k in (1, 2, 3, 4, 5, 6, 7, 8, 9)]
+    enc22 = coeff(gf.rs_parity_matrix(2, 2))
+    surv22 = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    gfc = [(coeff(gf.rs_decode_matrix(2, 2, s)), rand(2, 4096)) for s in surv22]
+    gfc = [(enc22, rand(2, 4096))] + gfc + [(enc22, rand(2, n)) for n in odd]
+    for k in range(2, 11):  # encode (2, k) and decode (k, k); 9, 10 runtime
+        gfc.append((coeff(gf.rs_parity_matrix(k, 2)), rand(k, 1024)))
+        gfc.append((coeff(gf.rs_decode_matrix(k, 2, tuple(range(2, k + 2)))), rand(k, 1024)))
+    gfc.append((coeff(gf.rs_parity_matrix(2, 3)), rand(2, 1024)))  # (3, 2)
+    return xor, gfc
+
+
+def codec_stripe_checks(seed: int = 17) -> int:
+    """Hold the datapath's own form of the single-stripe kernels -- the
+    codec's staged, row-padded pinned buffers and its one launch per stripe
+    -- bit-exact against the same codec on the CPU (the plain versions on the
+    same staged rows): ``encode_np`` and ``decode_np`` of every survivor set,
+    RAID-5 at k = 2..8 and RAID-6 at k = 2..8, at chunks of 1, 4, 1023 and
+    4,096 lanes.  Returns the number of calls checked."""
+    import itertools
+
+    import numpy as np
+    from repro_torch.core.raid import StripeCodec, make_scheme
+
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for scheme, extra in (("raid5", 1), ("raid6", 2)):
+        for k in range(2, 9):
+            card, cpu = (StripeCodec(make_scheme(scheme, k + extra), device=d)
+                         for d in ("cuda", "cpu"))
+            for nbytes in (4, 16, 4092, 16384):
+                data = rng.integers(0, 256, (k, nbytes), dtype=np.uint8)
+                par = card.encode_np(data)
+                if not np.array_equal(par, cpu.encode_np(data)):
+                    raise AssertionError(f"{scheme} k={k} encode_np({nbytes} B) differs")
+                code = np.concatenate([data, par])
+                for roles in itertools.combinations(range(k + extra), k):
+                    surv = np.ascontiguousarray(code[list(roles)])
+                    got = card.decode_np(surv, roles)
+                    if not (np.array_equal(got, cpu.decode_np(surv, roles))
+                            and np.array_equal(got, data)):
+                        raise AssertionError(f"{scheme} k={k} decode_np{roles}({nbytes} B) "
+                                             "differs")
+                checked += 1 + len(list(itertools.combinations(range(k + extra), k)))
+    return checked
+
+
+# The TPU kernels the single-stripe kernels replace.
+STRIPE_REPLACES = {"parity_xor": "src/repro/kernels/parity_xor.py:73",
+                   "gf256_matmul": "src/repro/kernels/gf256_matmul.py:103"}
+
+
+def stripe_checks(int32_ops_per_s: float | None = None,
+                  alu_per_load: dict[str, float] | None = None,
+                  rates: dict | None = None) -> list[dict]:
+    """Hold the single-stripe kernels bit-exact against their plain versions
+    in both operand forms -- CUDA tensors, and pinned host memory the card
+    maps -- at ``stripe_cases`` and on views off a 16-byte boundary, and in
+    the codec's own staged form (``codec_stripe_checks``).  With
+    the rates and ALU counts given, also time both forms at the main shapes
+    and return the ``parity_xor`` and ``gf256_matmul`` rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gf256_matmul as gfm
+    from repro_torch.kernels import parity_xor as px
+    from repro_torch.kernels import _build, ref
+
+    rng = np.random.default_rng(13)
+    side = torch.cuda.Stream()
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+
+    def coeff(mat):
+        return torch.from_numpy(np.asarray(mat, np.int32))
+
+    def pinned(t, skew=0):
+        """t's values in pinned host memory, ``skew`` int32 into the buffer."""
+        buf = torch.empty(t.numel() + skew, dtype=torch.int32, pin_memory=True)
+        view = buf[skew:].view(t.shape)
+        view.copy_(t.cpu())
+        return view
+
+    def xor_host(d):
+        out = torch.empty((d.shape[1],), dtype=torch.int32, pin_memory=True)
+        px.parity_xor_host(d, out, side.cuda_stream)
+        return out
+
+    def gf_host(c, d):
+        out = torch.empty((c.shape[0], d.shape[1]), dtype=torch.int32, pin_memory=True)
+        gfm.gf256_matmul_host(c, d, out, side.cuda_stream)
+        return out
+
+    xor_cases, gf_cases = stripe_cases(rand, coeff)
+    skewed = rand(2 * 3 * 64 + 1)[1:]  # device views off a 16-byte boundary
+    xor_cases.append(skewed[: 3 * 64].view(3, 64))
+    gf_cases.append((gf_cases[0][0], skewed[: 2 * 64].view(2, 64)))
+
+    def check(name, got, want):
+        if got.shape != want.shape or not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"{name}: kernel differs from its plain version")
+
+    n_checked = 0
+    for d in xor_cases:  # tolerance 0: every lane is integer bytes
+        check(f"parity_xor{tuple(d.shape)}", px.parity_xor(d), ref.parity_xor_ref(d))
+        skew = 1 if d.data_ptr() % 16 else 0
+        hd = pinned(d, skew)
+        check(f"parity_xor_host{tuple(d.shape)} skew {skew}", xor_host(hd),
+              ref.parity_xor_ref(hd))
+        n_checked += 2
+    for c, d in gf_cases:
+        for cc in (c, c.cuda()):  # coefficients from the host, or read back
+            check(f"gf256_matmul{tuple(c.shape)}x{tuple(d.shape)}",
+                  gfm.gf256_matmul(cc, d), ref.gf256_matmul_ref(c, d.cpu()))
+        skew = 1 if d.data_ptr() % 16 else 0
+        hd = pinned(d, skew)
+        check(f"gf256_matmul_host{tuple(c.shape)}x{tuple(d.shape)} skew {skew}",
+              gf_host(c, hd), ref.gf256_matmul_ref(c, hd))
+        n_checked += 3
+    torch.cuda.synchronize()
+    n_checked += codec_stripe_checks()
+    if rates is None:
+        return [{"cases": n_checked}]
+
+    peak = rates["peak_bytes_per_s"]
+    rows = []
+    main = {"parity_xor": (None, rand(3, 4096)),
+            "gf256_matmul": (gf_cases[0][0], rand(2, 4096))}
+    for name, (c, d) in main.items():
+        k, n = d.shape
+        m = 1 if c is None else c.shape[0]
+        # host-operand form, as StripeCodec launches it: addresses resolved once
+        hd = pinned(d)
+        hout = torch.empty((m, n), dtype=torch.int32, pin_memory=True)
+        src, dst = _build.host_device_pointer(hd), _build.host_device_pointer(hout)
+        if c is None:
+            def launch(src=src, dst=dst):
+                px.stripe_launch(src, dst, k, n, True, side.cuda_stream, True)
+            kernel, plain, plain_args = px.parity_xor, ref.parity_xor_ref, (d,)
+            ops = alu_per_load["xor_reduce"] * k * -(-n // 4)
+        else:
+            c_host = c.contiguous()
+
+            def launch(src=src, dst=dst, c_host=c_host):
+                gfm.stripe_launch(c_host.data_ptr(), m, k, src, dst, n, True,
+                                  side.cuda_stream, True)
+            kernel, plain, plain_args = gfm.gf256_matmul, ref.gf256_matmul_ref, (c, d)
+            ops = alu_per_load["gf256_matmul"] * m * k * -(-n // 4)
+        ms, call_ms = _time_host_ms(launch, 2000)
+        want = plain(*plain_args).cpu().view(m, n)
+        if not torch.equal(hout, want):
+            raise AssertionError(f"{name}: host-operand launch differs after timing")
+        # device-operand form, inputs rotated past the L2
+        copies = [plain_args] + [((c,) if c is not None else ()) + (rand(k, n),)
+                                 for _ in range(max(1, (96 << 20) // (4 * k * n)))]
+        dev_ms, dev_call_ms = _time_ms(kernel, copies, 200)
+        plain_ms, plain_call_ms = _time_ms(plain, copies[:8], 20)
+        in_b, out_b = 4 * k * n, 4 * m * n
+        link_ms = 1e3 * max(in_b, out_b) / peak  # the link is full duplex
+        op_ms = 1e3 * ops / int32_ops_per_s
+        hbm_ms = 1e3 * (in_b + out_b) / HBM_BYTES_PER_S
+        rows.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/codec.cu",
+            "replaces": STRIPE_REPLACES[name], "launches": 0, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(link_ms, op_ms),
+            "bound_by": "bytes" if link_ms >= op_ms else "operations", "library_ms": None,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "shape": ([list(c.shape)] if c is not None else []) + [list(d.shape)],
+            "bytes_us": 1e3 * link_ms, "ops_us": 1e3 * op_ms, "cases": n_checked,
+            "form": "host-mapped operands (the datapath's)",
+            "device_operands": {"ms": dev_ms, "call_ms": dev_call_ms,
+                                "bound_ms": max(hbm_ms, op_ms)},
+        })
+    return rows
+
+
 def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> list[dict]:
-    """Hold each kernel against its plain version, bit-exact, on the card;
-    time both at the datapath's main shapes.  Returns one row per entry.
+    """Hold the batched codec kernels against their plain versions,
+    bit-exact, on the card; time both at the datapath's group shape.
+    Returns one row per entry.
 
     ``alu_per_load`` is ``alu_ops_per_row_load`` of the built library; every
     main shape takes the 128-bit path, whose threads load one 16-byte row per
@@ -316,30 +716,17 @@ def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> lis
          lambda: (rand(256, 3, 2048),),
          lambda d: 4 * d.shape[0] * (d.shape[1] + 1) * d.shape[2],
          lambda d: xor_alu * d.shape[0] * d.shape[1] * row_loads(d.shape[2])),
-        ("parity_xor", px.parity_xor, ref.parity_xor_ref,
-         [(rand(3, 4096),), (rand(3, 16),)] + [(rand(3, n),) for n in odd],
-         lambda: (rand(3, 4096),),
-         lambda d: 4 * (d.shape[0] + 1) * d.shape[1],
-         lambda d: xor_alu * d.shape[0] * row_loads(d.shape[1])),
         ("gf256_matmul_batch", gfm.gf256_matmul_batch, ref.gf256_matmul_batch_ref,
          [(c, rand(256, 2, 2048)) for c in [enc22, *decs22]]
          + [(enc22, rand(5, 2, n)) for n in odd],
          lambda: (enc22, rand(256, 2, 2048)),
          lambda c, d: 4 * d.shape[0] * (d.shape[1] + c.shape[0]) * d.shape[2],
          lambda c, d: gf_alu * c.numel() * d.shape[0] * row_loads(d.shape[2])),
-        ("gf256_matmul", gfm.gf256_matmul, ref.gf256_matmul_ref,
-         [(c, rand(2, 4096)) for c in [enc22, *decs22]]
-         + [(enc22, rand(2, n)) for n in odd],
-         lambda: (enc22, rand(2, 4096)),
-         lambda c, d: 4 * (d.shape[0] + c.shape[0]) * d.shape[1],
-         lambda c, d: gf_alu * c.numel() * row_loads(d.shape[1])),
     ]
     source = "src/repro_torch/kernels/csrc/codec.cu"
     replaces = {
         "parity_xor_batch": "src/repro/kernels/parity_xor.py:49",
-        "parity_xor": "src/repro/kernels/parity_xor.py:73",
         "gf256_matmul_batch": "src/repro/kernels/gf256_matmul.py:76",
-        "gf256_matmul": "src/repro/kernels/gf256_matmul.py:103",
     }
     rows = []
     for name, fn, plain, cases, main, nbytes, nops in entries:
@@ -858,16 +1245,22 @@ def main() -> int:
     alu_per_load = alu_ops_per_row_load(lib)
     tensor_ops = tensor_core_instructions(lib)
     _emit({"phase": "build", "seconds": time.perf_counter() - t, "library": lib.name,
-           "alu_ops_per_row_load": alu_per_load, "ssd_tensor_core_instructions": tensor_ops})
+           "alu_ops_per_row_load": alu_per_load, "ssd_tensor_core_instructions": tensor_ops,
+           "stripe_loads_before_first_combine": stripe_loads_first(lib)})
 
     with Phase("kernels") as ph:
-        rows = kernel_checks(alu_per_load, int32_ops_per_s)
+        rates = link_rates()
+        floor = launch_floor()
+        batch_rows = kernel_checks(alu_per_load, int32_ops_per_s)
+        stripe_rows = stripe_checks(int32_ops_per_s, alu_per_load, rates)
+        rows = [batch_rows[0], stripe_rows[0], batch_rows[1], stripe_rows[1]]
+        trips = codec_round_trips()
         ssd_rows = ssd_checks()
-        ph.info["gpu"] = gpu
+        ph.info.update(gpu=gpu, link=rates, launch_floor=floor, round_trips=trips)
         ph.info["kernels"] = [
             {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
                                "plain_call_ms", "bytes_us", "ops_us", "bound_by",
-                               "cases")}
+                               "cases", "form", "device_operands") if k in r}
             for r in rows]
         for r in ssd_rows:
             ph.info[r["name"]] = {k: v for k, v in r.items()

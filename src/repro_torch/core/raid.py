@@ -2,9 +2,10 @@
 
 Supports the paper's five schemes (Exp#4): RAID-0, RAID-01, RAID-4, RAID-5,
 RAID-6 on an n-drive array.  The codec operates on int32-packed chunk
-payloads as torch tensors on the codec's device, and dispatches to the CUDA
-kernels (XOR for single parity, GF(256) Reed-Solomon for double parity); on the
-CPU the same ops run their plain torch versions.
+payloads and dispatches to the CUDA kernels (XOR for single parity, GF(256)
+Reed-Solomon for double parity): stripe groups as torch tensors on the
+card, single stripes in pinned host memory the card maps; on the CPU the
+same ops run their plain torch versions.
 
 Placement: role r of a stripe lives on drive ``(r + rot) % n`` where
 ``rot = stripe_seq % n`` for rotating schemes (RAID-5/6) and ``rot = 0`` for
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import gf
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, gf256_matmul, ops, parity_xor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,31 +93,65 @@ class StripeCodec:
 
     Two byte-level surfaces exist side by side:
 
-    * ``encode_np``/``decode_np`` and their ``_batch`` variants -- blocking
-      uint8-in/uint8-out convenience wrappers (host packing is a free dtype
-      view; one device round trip per call);
+    * ``encode_np``/``decode_np`` -- blocking uint8-in/uint8-out calls for one
+      stripe (the Zone-Write stripe build, degraded read, rebuild, OOB
+      recovery).  A stripe that needs a kernel is staged into two buffers the
+      codec owns, rows padded to 16-byte boundaries; on ``cuda`` they are
+      pinned host memory the card maps, and one launch of the single-stripe
+      kernel on the codec's own stream reads and writes them in place and
+      waits for itself: no copy to or from device memory, one ctypes call,
+      and the call never waits behind a group encode in flight on the
+      current stream.  On ``cpu`` the plain version runs on the same staged
+      buffers.  RAID-0, mirrors and survivor sets that hold every data row
+      need no kernel;
     * ``encode_batch_async``/``decode_batch_async`` -- the group datapath:
       take an int32-packed host buffer (an arena gather), copy it to the
       device once, launch the kernel on the current CUDA stream and return
       the *un-materialized* device tensor, so the launch overlaps host-side
-      commit work.  The caller syncs with :meth:`materialize`.
+      commit work.  The caller syncs with :meth:`materialize`.  The
+      ``_batch_np`` variants wrap them for uint8 buffers.
 
     ``copy_stats`` (optional) is an object with ``h2d_copies/h2d_bytes/
     d2h_copies/d2h_bytes`` counters (e.g. :class:`repro_torch.core.array.Stats`)
-    bumped on every host<->device transfer the codec performs.
+    that count the bytes crossing the host link as the reference counts
+    them: per call, one transfer in of the packed operand and one transfer
+    out of the result (a per-stripe kernel reads its operand across the link
+    in place, and writes the rows it computes).
+
+    A codec serves one thread at a time: each per-stripe call has finished
+    with the staging buffers when it returns.
     """
 
     def __init__(self, scheme: RaidScheme, *, device: str | torch.device = "cuda"):
         self.scheme = scheme
         self.device = check_device(device)
         self.copy_stats = None
+        # per-stripe staging: flat int32 views of the input and output
+        # buffers, and per stripe shape the (k, n) and (rows_out, n) views
+        # into them; on cuda also the pinned tensors behind them, their card
+        # addresses, and the codec's stream
+        self._cuda = self.device.type == "cuda"
+        self._in = self._out = None
+        self._views: dict[tuple[int, int, int], tuple[np.ndarray, ...]] = {}
+        self._pinned: tuple[torch.Tensor, ...] = ()
+        self._in_dev = self._out_dev = 0
+        self._stream: torch.cuda.Stream | None = None
+        self._stream_handle = 0
 
     # -- host<->device accounting -------------------------------------------
 
-    def _to_device(self, packed_np: np.ndarray) -> torch.Tensor:
+    def _count_h2d(self, nbytes: int) -> None:
         if self.copy_stats is not None:
             self.copy_stats.h2d_copies += 1
-            self.copy_stats.h2d_bytes += packed_np.nbytes
+            self.copy_stats.h2d_bytes += nbytes
+
+    def _count_d2h(self, nbytes: int) -> None:
+        if self.copy_stats is not None:
+            self.copy_stats.d2h_copies += 1
+            self.copy_stats.d2h_bytes += nbytes
+
+    def _to_device(self, packed_np: np.ndarray) -> torch.Tensor:
+        self._count_h2d(packed_np.nbytes)
         # Always a copy, never torch.from_numpy's alias: the arena gather
         # doubles as the commit payload, and on the CPU device an alias would
         # let codec outputs share memory with buffers the caller still writes.
@@ -131,63 +166,34 @@ class StripeCodec:
         Always a fresh host array (a copy even on the CPU device), so no
         caller can mutate a tensor the codec still holds."""
         out = out_dev.to("cpu", copy=True).numpy()
-        if self.copy_stats is not None:
-            self.copy_stats.d2h_copies += 1
-            self.copy_stats.d2h_bytes += out.nbytes
+        self._count_d2h(out.nbytes)
         return out
 
-    # data: (k, n_i32) int32 packed chunk payloads
-    def encode(self, data_i32: torch.Tensor) -> torch.Tensor:
-        """Return (m, n_i32) parity chunks (empty for RAID-0)."""
-        s = self.scheme
-        assert data_i32.shape[0] == s.k, (data_i32.shape, s)
-        if s.m == 0:
-            return data_i32.new_zeros((0, data_i32.shape[1]))
-        if s.mirror:
-            return data_i32
-        if s.m == 1:
-            return ops.xor_parity(data_i32)[None, :]
-        return ops.rs_encode(data_i32, s.m)
-
-    def decode(
-        self, surviving_i32: torch.Tensor, surviving_roles: tuple[int, ...]
-    ) -> torch.Tensor:
-        """Reconstruct all k data chunks from k surviving codeword rows."""
+    def _survivor_rows(self, roles: tuple[int, ...]) -> list[int | None]:
+        """For each data role 0..k-1, the index of the surviving row that
+        holds it (for mirrors, either copy), or None where it is lost; raises
+        where the survivors cannot give the data back."""
         s = self.scheme
         if s.m == 0:
             raise ValueError("RAID-0 cannot decode lost chunks")
         if s.mirror:
             # role r and role r+k are copies; pick whichever survived.
-            out = {}
-            for row, role in zip(surviving_i32, surviving_roles):
-                out.setdefault(role % s.k, row)
-            if len(out) < s.k:
+            rows: dict[int, int] = {}
+            for i, role in enumerate(roles):
+                rows.setdefault(role % s.k, i)
+            if len(rows) < s.k:
                 raise ValueError("RAID-01: both copies of a chunk lost")
-            return torch.stack([out[i] for i in range(s.k)], dim=0)
-        roles = tuple(surviving_roles)
+            return [rows[i] for i in range(s.k)]
         if len(roles) != s.k:
             raise ValueError(f"need exactly k={s.k} surviving rows, got {len(roles)}")
-        if set(roles) == set(range(s.k)):
-            # all data roles survive (possibly permuted): just reorder.
-            order = [roles.index(i) for i in range(s.k)]
-            return surviving_i32[order]
-        if s.m == 1:
-            # Single parity: lost data chunk = XOR of the survivors.
-            lost = set(range(s.k)) - set(roles)
-            assert len(lost) == 1
-            lost_role = lost.pop()
-            rec = ops.xor_parity(surviving_i32)
-            rows = {role: surviving_i32[i] for i, role in enumerate(roles) if role < s.k}
-            rows[lost_role] = rec
-            return torch.stack([rows[i] for i in range(s.k)], dim=0)
-        return ops.rs_decode(surviving_i32, roles, s.k, s.m)
+        return [roles.index(i) if i in roles else None for i in range(s.k)]
 
     # batched (stripe-group) datapath: data (S, k, n_i32) int32
     def encode_batch(self, data_i32: torch.Tensor) -> torch.Tensor:
         """Encode S stripes at once: (S, k, n) -> (S, m, n) parity.
 
         One kernel launch per group instead of one per stripe; the output is
-        bit-identical to stacking ``encode`` over the S stripes.
+        bit-identical to ``encode_np`` of each stripe.
         """
         s = self.scheme
         assert data_i32.ndim == 3 and data_i32.shape[1] == s.k, (data_i32.shape, s)
@@ -203,46 +209,107 @@ class StripeCodec:
         self, surviving_i32: torch.Tensor, surviving_roles: tuple[int, ...]
     ) -> torch.Tensor:
         """Reconstruct S stripes' data chunks from survivors sharing one role
-        set: (S, k, n) survivors -> (S, k, n) data, bit-identical to stacking
-        ``decode`` over the S stripes."""
+        set: (S, k, n) survivors -> (S, k, n) data, bit-identical to
+        ``decode_np`` of each stripe."""
         s = self.scheme
-        if s.m == 0:
-            raise ValueError("RAID-0 cannot decode lost chunks")
-        roles = tuple(surviving_roles)
-        if s.mirror:
-            out = {}
-            for i, role in enumerate(roles):
-                out.setdefault(role % s.k, surviving_i32[:, i])
-            if len(out) < s.k:
-                raise ValueError("RAID-01: both copies of a chunk lost")
-            return torch.stack([out[i] for i in range(s.k)], dim=1)
-        if len(roles) != s.k:
-            raise ValueError(f"need exactly k={s.k} surviving rows, got {len(roles)}")
-        if set(roles) == set(range(s.k)):
-            order = [roles.index(i) for i in range(s.k)]
-            return surviving_i32[:, order]
-        if s.m == 1:
-            lost = set(range(s.k)) - set(roles)
-            assert len(lost) == 1
-            lost_role = lost.pop()
+        rows = self._survivor_rows(tuple(surviving_roles))
+        if None not in rows:  # all data survives (possibly permuted): reorder
+            return surviving_i32[:, rows]
+        if s.m == 1:  # single parity: the lost chunk is the XOR of the survivors
             rec = ops.xor_parity_batch(surviving_i32)
-            cols = {role: surviving_i32[:, i] for i, role in enumerate(roles) if role < s.k}
-            cols[lost_role] = rec
-            return torch.stack([cols[i] for i in range(s.k)], dim=1)
-        return ops.rs_decode_batch(surviving_i32, roles, s.k, s.m)
+            return torch.stack([rec if r is None else surviving_i32[:, r] for r in rows], dim=1)
+        return ops.rs_decode_batch(surviving_i32, tuple(surviving_roles), s.k, s.m)
+
+    # -- single stripes: staged host buffers, one kernel launch -------------
+
+    def _stage_views(self, k: int, rows_out: int, n: int) -> tuple[np.ndarray, ...]:
+        """The staging buffers' (k, ld) input and (rows_out, ld) output rows
+        for one stripe shape, ``ld`` = n rounded up to 4 lanes so each row
+        starts on a 16-byte boundary, and their first n lanes; the buffers
+        grow (doubling) when a shape needs more.  Cached per shape."""
+        ld = -(-n // 4) * 4
+        need_in, need_out = k * ld, rows_out * ld
+        if self._in is None or self._in.size < need_in or self._out.size < need_out:
+            have_in, have_out = (0, 0) if self._in is None else (self._in.size, self._out.size)
+            self._alloc(max(need_in, 2 * have_in), max(need_out, 2 * have_out))
+        padded_in = self._in[:need_in].reshape(k, ld)
+        padded_out = self._out[:need_out].reshape(rows_out, ld)
+        views = (padded_in, padded_out, padded_in[:, :n], padded_out[:, :n])
+        self._views[(k, rows_out, n)] = views
+        return views
+
+    def _alloc(self, words_in: int, words_out: int) -> None:
+        self._views.clear()
+        if not self._cuda:
+            self._in, self._out = np.empty(words_in, np.int32), np.empty(words_out, np.int32)
+            return
+        _build.require_host_mapping()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream_handle = self._stream.cuda_stream
+        self._pinned = tuple(torch.empty(w, dtype=torch.int32, pin_memory=True)
+                             for w in (words_in, words_out))
+        self._in_dev, self._out_dev = (_build.host_device_pointer(b) for b in self._pinned)
+        # pinned allocations are page-aligned and rows start every 4 lanes,
+        # so every staged row takes the kernels' 16-byte loads and stores
+        assert self._in_dev % 16 == 0 and self._out_dev % 16 == 0, "unaligned staging"
+        self._in, self._out = (b.numpy() for b in self._pinned)
+
+    def _stripe(self, packed: np.ndarray, rows_out: int,
+                coeff: torch.Tensor | None) -> np.ndarray:
+        """One stripe through its kernel on the staging buffers: (k, n) int32
+        -> (rows_out, n) int32, a fresh array.  XOR (rows_out = 1) when
+        ``coeff`` is None, else the GF product with the (rows_out, k) CPU
+        int32 coefficients."""
+        k, n = packed.shape
+        views = self._views.get((k, rows_out, n)) or self._stage_views(k, rows_out, n)
+        padded_in, padded_out, src, dst = views
+        np.copyto(src, packed)
+        ld = padded_in.shape[1]
+        if self._cuda:
+            if coeff is None:
+                parity_xor.stripe_launch(self._in_dev, self._out_dev, k, ld, True,
+                                         self._stream_handle, True)
+            else:
+                gf256_matmul.stripe_launch(coeff.data_ptr(), rows_out, k, self._in_dev,
+                                           self._out_dev, ld, True, self._stream_handle,
+                                           True)
+        else:  # the plain versions on the same staged rows, padding included
+            data = torch.from_numpy(padded_in)
+            res = ops.xor_parity(data)[None] if coeff is None else ops.rs_matmul(coeff, data)
+            padded_out[:] = res.numpy()
+        return dst.copy()
 
     def decode_np(self, surviving: np.ndarray, surviving_roles: tuple[int, ...]) -> np.ndarray:
         """Byte-level convenience wrapper (uint8 in/out) used by recovery paths."""
-        packed = self._to_device(ops.pack_bytes_np(surviving))
-        out = self.decode(packed, surviving_roles)
-        return ops.unpack_bytes_np(self.materialize(out))
+        s = self.scheme
+        roles = tuple(surviving_roles)
+        packed = ops.pack_bytes_np(surviving)
+        self._count_h2d(packed.nbytes)
+        rows = self._survivor_rows(roles)
+        if None in rows and s.m > 1:
+            out = self._stripe(packed, s.k, ops.rs_decode_coeff(s.k, s.m, roles, "cpu"))
+        else:  # the surviving data rows in role order (a reorder if none is lost)
+            out = packed[[0 if r is None else r for r in rows]]
+            if None in rows:  # single parity: the lost row is the XOR of the survivors
+                out[rows.index(None)] = self._stripe(packed, 1, None)[0]
+        self._count_d2h(out.nbytes)
+        return ops.unpack_bytes_np(out)
 
     def encode_np(self, data: np.ndarray) -> np.ndarray:
-        if not self.scheme.m:
+        s = self.scheme
+        if not s.m:
             return np.zeros((0, data.shape[1]), np.uint8)
-        packed = self._to_device(ops.pack_bytes_np(data))
-        out = self.encode(packed)
-        return ops.unpack_bytes_np(self.materialize(out)).reshape(self.scheme.m, -1)
+        packed = ops.pack_bytes_np(data)
+        assert packed.shape[0] == s.k, (packed.shape, s)
+        self._count_h2d(packed.nbytes)
+        if s.mirror:  # the parity rows are copies
+            out = packed.copy()
+        else:
+            coeff = None if s.m == 1 else ops.rs_parity_coeff(s.k, s.m, "cpu")
+            out = self._stripe(packed, s.m, coeff)
+        self._count_d2h(out.nbytes)
+        return ops.unpack_bytes_np(out).reshape(s.m, -1)
 
     @staticmethod
     def _pad_batch(data: np.ndarray) -> tuple[np.ndarray, int]:

@@ -8,7 +8,9 @@ rebuilds and an unchanged tree reuses it.  It is loaded with ``ctypes``:
 pointers and the stream pass as ``c_void_p``, sizes as
 ``c_int``/``c_longlong``.
 
-A missing ``nvcc`` or a failed build raises; there is no fallback.
+A missing ``nvcc`` or a failed build raises; there is no fallback.  So does
+a device that cannot map pinned host memory, which the single-stripe codec
+path reads and writes in place (:func:`require_host_mapping`).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_host_mapping_checked = False
 
 
 def find_nvcc() -> str:
@@ -98,6 +101,8 @@ def build(verbose: bool = False) -> Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -106,6 +111,14 @@ def load() -> ctypes.CDLL:
             lib.codec_xor_reduce.restype = i
             lib.codec_gf256_matmul.argtypes = [vp, vp, vp, i, i, ll, ll, i, vp]
             lib.codec_gf256_matmul.restype = i
+            lib.codec_stripe_xor.argtypes = [vp, vp, i, ll, i, vp, i]
+            lib.codec_stripe_xor.restype = i
+            lib.codec_stripe_gf256.argtypes = [vp, i, i, vp, vp, ll, i, vp, i]
+            lib.codec_stripe_gf256.restype = i
+            lib.codec_host_device_pointer.argtypes = [vp, ctypes.POINTER(vp)]
+            lib.codec_host_device_pointer.restype = i
+            lib.codec_can_map_host_memory.argtypes = [ctypes.POINTER(i)]
+            lib.codec_can_map_host_memory.restype = i
             lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                      i, i, i, i, i, i, vp, vp]
             lib.ssd_chunk_gram.argtypes = [i, vp, vp, vp, i, i, i, i, vp, vp]
@@ -143,3 +156,47 @@ def launch(fn_name: str, *args) -> None:
     err = getattr(load(), fn_name)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+
+
+def can_map_host_memory() -> bool:
+    """``cudaDevAttrCanMapHostMemory`` of the current device."""
+    can = ctypes.c_int(0)
+    err = load().codec_can_map_host_memory(ctypes.byref(can))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed with error {err}")
+    return bool(can.value)
+
+
+def require_host_mapping() -> None:
+    """Raise unless the device can map pinned host memory; asks it once."""
+    global _host_mapping_checked
+    if not _host_mapping_checked:
+        if not can_map_host_memory():
+            raise RuntimeError("the CUDA device cannot map pinned host memory, which "
+                               "the single-stripe codec kernels read and write in place")
+        _host_mapping_checked = True
+
+
+def check_host_operand(x: torch.Tensor, ndim: int, name: str) -> None:
+    """Validate an operand of a host-operand entry: a contiguous ``ndim``-d
+    int32 tensor in pinned host memory; raise otherwise."""
+    if x.dtype != torch.int32 or x.ndim != ndim:
+        raise TypeError(f"{name}: want a {ndim}-d int32 tensor, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type != "cpu" or not x.is_pinned():
+        raise ValueError(f"{name}: host operands must lie in pinned host memory")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: host operands must be contiguous")
+
+
+def host_device_pointer(x: torch.Tensor) -> int:
+    """The card's address of a pinned host tensor's first element, from
+    ``cudaHostGetDevicePointer`` on its storage (never assumed to equal the
+    host address)."""
+    require_host_mapping()
+    base = x.untyped_storage().data_ptr()
+    dev = ctypes.c_void_p()
+    err = load().codec_host_device_pointer(ctypes.c_void_p(base), ctypes.byref(dev))
+    if err != 0 or not dev.value:
+        raise RuntimeError(f"cudaHostGetDevicePointer failed with error {err}")
+    return dev.value + (x.data_ptr() - base)

@@ -60,17 +60,16 @@ def rs_matmul(coeff_i32: torch.Tensor, chunks_i32: torch.Tensor) -> torch.Tensor
 
 
 def rs_encode(chunks_i32: torch.Tensor, m: int) -> torch.Tensor:
-    """Encode (k, n) data chunks into (m, n) RS parity chunks."""
-    coeff = rs_parity_coeff(chunks_i32.shape[0], m, chunks_i32.device)
-    return rs_matmul(coeff, chunks_i32)
+    """Encode (k, n) data chunks into (m, n) RS parity chunks.  The
+    single-stripe kernel takes its coefficients by value, from the host."""
+    return rs_matmul(rs_parity_coeff(chunks_i32.shape[0], m, "cpu"), chunks_i32)
 
 
 def rs_decode(
     surviving_i32: torch.Tensor, surviving_rows: tuple[int, ...], k: int, m: int
 ) -> torch.Tensor:
     """Reconstruct the k data chunks from any k surviving codeword rows."""
-    dec = rs_decode_coeff(k, m, tuple(surviving_rows), surviving_i32.device)
-    return rs_matmul(dec, surviving_i32)
+    return rs_matmul(rs_decode_coeff(k, m, tuple(surviving_rows), "cpu"), surviving_i32)
 
 
 # ------------------------------------------------------- batched (group) ops

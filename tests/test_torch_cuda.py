@@ -89,6 +89,117 @@ def test_codec_on_card_equals_cpu(cuda, scheme, n):
         assert np.array_equal(dev.decode_np(surv[0], roles), data[0]), roles
 
 
+def _pinned(t, skew=0):
+    """t's values in pinned host memory, ``skew`` int32 into the buffer."""
+    buf = torch.empty(t.numel() + skew, dtype=torch.int32, pin_memory=True)
+    view = buf[skew:].view(t.shape)
+    view.copy_(t.cpu())
+    return view
+
+
+def _stripe_coeffs():
+    """(m, k) GF coefficient matrices of the single-stripe instances:
+    RAID-6 encode (2, k) and decode (k, k) for k = 2..9 (9: the runtime
+    instance), every (2+2) survivor set, and m = 3 outputs of k = 2."""
+    from repro_torch.core import gf
+
+    mats = [gf.rs_decode_matrix(2, 2, s) for s in itertools.combinations(range(4), 2)]
+    for k in range(2, 10):
+        mats += [gf.rs_parity_matrix(k, 2), gf.rs_decode_matrix(k, 2, tuple(range(2, k + 2)))]
+    mats.append(gf.rs_parity_matrix(2, 3))
+    return [torch.from_numpy(m.astype(np.int32)) for m in mats]
+
+
+@pytest.mark.parametrize("n", [1, 4, 1023, 4096])
+def test_stripe_kernels_match_plain_versions_in_both_forms(cuda, n):
+    """The single-stripe kernels on CUDA tensors and on pinned host memory
+    the card maps (the datapath's form), bit-exact, at k = 1..9."""
+    side = torch.cuda.Stream()
+    reset_launch_counts()
+    launches = 0
+    for k in range(1, 10):
+        x = _words(10 * n + k, k, n)
+        assert torch.equal(px.parity_xor(x.to(cuda)).cpu(), ref.parity_xor_ref(x))
+        out = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        px.parity_xor_host(_pinned(x), out, side.cuda_stream)
+        assert torch.equal(out, ref.parity_xor_ref(x))
+        launches += 2
+    assert launch_counts()["parity_xor"] == launches
+    reset_launch_counts()
+    for i, c in enumerate(_stripe_coeffs()):
+        x = _words(n + i, c.shape[1], n)
+        want = ref.gf256_matmul_ref(c, x)
+        assert torch.equal(gfm.gf256_matmul(c, x.to(cuda)).cpu(), want)
+        out = torch.empty(tuple(want.shape), dtype=torch.int32, pin_memory=True)
+        gfm.gf256_matmul_host(c, _pinned(x), out, side.cuda_stream)
+        assert torch.equal(out, want)
+    assert launch_counts()["gf256_matmul"] == 2 * len(_stripe_coeffs())
+
+
+def test_stripe_host_operands_off_a_16_byte_boundary(cuda):
+    """Pinned views that start off a 16-byte boundary take the scalar path."""
+    x = _words(21, 3, 64)
+    hx = _pinned(x, skew=1)
+    assert hx.data_ptr() % 16 != 0
+    out = torch.empty(65, dtype=torch.int32, pin_memory=True)[1:]
+    px.parity_xor_host(hx, out)
+    assert torch.equal(out, ref.parity_xor_ref(x))
+    c = ops.rs_parity_coeff(3, 2, "cpu")
+    out2 = torch.empty(2 * 64 + 1, dtype=torch.int32, pin_memory=True)[1:].view(2, 64)
+    gfm.gf256_matmul_host(c, hx, out2)
+    assert torch.equal(out2, ref.gf256_matmul_ref(c, x))
+
+
+def test_stripe_entries_refuse_what_they_cannot_take(cuda):
+    x = _words(22, 3, 64)
+    out = torch.empty(64, dtype=torch.int32, pin_memory=True)
+    with pytest.raises(ValueError, match="pinned"):
+        px.parity_xor_host(x, out)  # pageable host memory
+    with pytest.raises(ValueError, match="pinned"):
+        px.parity_xor_host(x.to(cuda), out)  # device memory
+    with pytest.raises(ValueError, match="contiguous"):
+        px.parity_xor_host(_pinned(_words(23, 64, 3)).t(), out)
+    c = ops.rs_parity_coeff(3, 2, "cpu")
+    with pytest.raises(ValueError, match="pinned"):
+        gfm.gf256_matmul_host(c, _pinned(x), torch.empty(2, 64, dtype=torch.int32))
+    big = torch.ones(33, 32, dtype=torch.int32)  # m * k = 1,056 > MAX_STRIPE_COEFFS
+    assert big.numel() > gfm.MAX_STRIPE_COEFFS
+    with pytest.raises(ValueError, match="by value"):
+        gfm.gf256_matmul_host(big, _pinned(_words(24, 32, 64)),
+                              torch.empty(33, 64, dtype=torch.int32, pin_memory=True))
+    with pytest.raises(ValueError, match="by value"):
+        gfm.gf256_matmul(big, _words(24, 32, 64).to(cuda))
+
+
+@pytest.mark.parametrize("scheme", ["raid5", "raid6"])
+def test_codec_per_stripe_path_is_one_launch_and_no_copy(cuda, scheme, monkeypatch):
+    """encode_np / decode_np on the card: one kernel launch and one ctypes
+    call per stripe, no torch host<->device copy, no device-wide sync."""
+    codec = raid.StripeCodec(raid.make_scheme(scheme, 4), device="cuda")
+    k = codec.scheme.k
+    data = np.random.default_rng(3).integers(0, 256, (k, 16384), dtype=np.uint8)
+    par = codec.encode_np(data)  # warm: staging, stream, ctypes entries
+    roles = tuple(range(4 - k, 4))  # lose data role 0 (RAID-5) or both (RAID-6)
+    surv = np.ascontiguousarray(np.concatenate([data, par])[list(roles)])
+    codec.decode_np(surv, roles)
+    mod = px if scheme == "raid5" else gfm
+    calls = []
+    fn = mod._stripe_fn
+    monkeypatch.setattr(mod, "_stripe_fn", lambda *a: calls.append(a) or fn(*a))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the per-stripe path must not copy through torch or sync")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(raid.StripeCodec, "_to_device", refuse)
+    monkeypatch.setattr(raid.StripeCodec, "materialize", refuse)
+    reset_launch_counts()
+    assert np.array_equal(codec.encode_np(data), par)
+    assert np.array_equal(codec.decode_np(surv, roles), data)
+    name = "parity_xor" if scheme == "raid5" else "gf256_matmul"
+    assert launch_counts()[name] == 2 and len(calls) == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["rows", "heads"])
 def test_ssd_scan_matches_plain_version(cuda, dtype, layout):

@@ -134,3 +134,62 @@ def test_ssd_tensor_flops_at_the_serving_shape():
         == 4096 * chunks * (blocks * 1312 + batch * 576)
     # f32 inputs take three products where bf16 takes two (one for G)
     assert smoke.ssd_tensor_flops(1, 1, 128, 128, 128, 32, f32=True) == 4096 * (1968 + 1728)
+
+
+_XOR2 = "17stripe_xor_kernelILi2ELb1E"
+_GF22 = "19stripe_gf256_kernelILi2ELi2ELb1E"
+
+
+def _stripe_sass(xor_body):
+    loads_first = ["LDG.E.128 R4, desc[UR4][R20.64]", "LDG.E.128 R8, desc[UR4][R22.64]",
+                   "LOP3.LUT R12, R4, R8, RZ, 0x96, !PT", "STG.E.128 desc[UR4][R24.64], R12",
+                   "EXIT"]
+    return (_listing(_XOR2, xor_body) + _listing(_GF22, loads_first)
+            # the runtime (k = 0) and scalar (Lb0E) instances are not read
+            + _listing("17stripe_xor_kernelILi0ELb1E", ["LDG.E.128 R4, desc[UR4][R20.64]",
+                                                        "LOP3.LUT R8, R4, RZ, RZ, 0x3c, !PT"])
+            + _listing("17stripe_xor_kernelILi2ELb0E", ["LDG.E R4, desc[UR4][R20.64]"]))
+
+
+def _stripe_loads(monkeypatch, sass, instances):
+    smoke = _smoke()
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    monkeypatch.setattr(smoke, "STRIPE_INSTANCES", frozenset(instances))
+    return smoke.stripe_loads_first(Path("lib.so"))
+
+
+def test_stripe_loads_first_passes_when_every_load_precedes_the_combine(monkeypatch):
+    body = ["LDG.E.128 R4, desc[UR4][R20.64]", "IADD3 R22, P0, R20, UR6, RZ",
+            "LDG.E.128 R8, desc[UR4][R22.64]", "LOP3.LUT R12, R4, R8, RZ, 0x96, !PT",
+            "STG.E.128 desc[UR4][R24.64], R12", "EXIT"]
+    got = _stripe_loads(monkeypatch, _stripe_sass(body),
+                        ["stripe_xor<k=2>", "stripe_gf256<k=2,m=2>"])
+    assert got == {"stripe_xor<k=2>": "2/2", "stripe_gf256<k=2,m=2>": "2/2"}
+
+
+@pytest.mark.parametrize("body,match", [
+    # the first row's lanes combined before the second load is issued
+    (["LDG.E.128 R4, desc[UR4][R20.64]", "LOP3.LUT R12, R4, RZ, RZ, 0x3c, !PT",
+      "LDG.E.128 R8, desc[UR4][R22.64]", "LOP3.LUT R12, R12, R8, RZ, 0x96, !PT", "EXIT"],
+     "1 of 2 row loads"),
+    # one load for two rows
+    (["LDG.E.128 R4, desc[UR4][R20.64]", "LOP3.LUT R12, R4, RZ, RZ, 0x3c, !PT", "EXIT"],
+     "1 of 1 row loads"),
+])
+def test_stripe_loads_first_raises_on_a_combine_between_loads(monkeypatch, body, match):
+    with pytest.raises(AssertionError, match=match):
+        _stripe_loads(monkeypatch, _stripe_sass(body),
+                      ["stripe_xor<k=2>", "stripe_gf256<k=2,m=2>"])
+
+
+def test_stripe_loads_first_raises_on_a_missing_instance(monkeypatch):
+    body = ["LDG.E.128 R4, desc[UR4][R20.64]", "LDG.E.128 R8, desc[UR4][R22.64]",
+            "LOP3.LUT R12, R4, R8, RZ, 0x96, !PT", "EXIT"]
+    with pytest.raises(RuntimeError, match="stripe_xor<k=3>"):
+        _stripe_loads(monkeypatch, _stripe_sass(body), ["stripe_xor<k=2>", "stripe_xor<k=3>"])
+
+
+def test_pcie_peak_rate_is_gen5_x16():
+    # 32 GT/s x 16 lanes x 128/130 / 8 bits: ~63.0 GB/s each way
+    assert _smoke().PCIE_BYTES_PER_S == pytest.approx(63.015e9, rel=1e-4)
