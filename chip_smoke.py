@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of ``repro_torch`` on one NVIDIA GPU: ZapRAID's datapath
-and Mamba-2 1.3B serving.
+"""Chip smoke test of ``repro_torch`` on one NVIDIA GPU: ZapRAID's datapath,
+its timed pipeline, and Mamba-2 1.3B serving.
 
 Run from the root of a checkout, with no arguments::
 
@@ -44,7 +44,19 @@ failing on the first error:
    read-back of every acknowledged block;
 5. card vs CPU -- one small workload through ``device="cuda"`` and
    ``device="cpu"``; the drive images must be byte-equal;
-6. mamba2_serve -- ``mamba2-1.3b`` at full width (48 layers, bf16, random
+6. the timed pipeline -- ``HandlerPipeline.build_timed`` on phase 2's
+   deployment with the Zone-Append order from the ZN540 device model,
+   preconditioned with phase 2's fill: ``timed`` replays 20,000 requests of
+   Exp#10's trace mix (``TIMED``) and reads every acknowledged block back;
+   ``timed_degraded`` fails drive 1, rebuilds it under a scanner and a
+   uniform reader (``TIMED_DEGRADED``) and reads everything back again.
+   Each prints virtual latency percentiles, events fired, and host time per
+   request.  ``timed_profile`` replays the first 2,000 requests again under
+   ``torch.profiler`` for the card's busy share; ``timed_card_vs_cpu`` runs
+   three of the reference's timed scenarios (Exp#10, rebuild under load, a
+   degraded RAID-6 replay) on the card and on the CPU and requires every
+   virtual-time output, the drive images, L2P and Stats to be equal;
+7. mamba2_serve -- ``mamba2-1.3b`` at full width (48 layers, bf16, random
    weights from ``SEED``) serves 8 requests of 1,024 prompt tokens and 32
    generated tokens at batch 4 through ``repro_torch.launch.serve.serve``:
    prefill and decode tokens/s, peak device memory, finite logits, and 48
@@ -55,12 +67,13 @@ failing on the first error:
    device time by kernel and the card's idle share of each.
 
 Each phase prints one JSON line.  The codec kernels' launch counts are
-zeroed just before phase 2 and read just after phase 4; the SSD scan's are
-zeroed just before the serving run of phase 6 and read just after it.  The
-``kernels`` line reports them.  The last two lines are the card's name and
-power limit and the ``{"ok": true, "device": ...}`` result.  Without a CUDA
-device, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+zeroed just before phase 2 and read just after phase 4 (``launches``), and
+zeroed again just before ``timed`` and read just after ``timed_degraded``
+(``timed_launches``); the SSD scan's are zeroed just before the serving run
+of phase 7 and read just after it.  The ``kernels`` line reports them.
+The last two lines are the card's name and power limit and the
+``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -120,6 +133,18 @@ BLOCK_BYTES = 4096
 SEED = 0  # of the traffic and the data; every phase makes its blocks from it
 FULL = dict(zones=12, zone_cap_blocks=16384, logical_blocks=65536, group=256)
 
+# The timed pipeline on the same deployment: Exp#10's open-loop trace mix
+# (benchmarks/run.py bench_trace) over the whole volume -- exponential
+# inter-arrivals of mean gap_us (~25 k IOPS), write_frac writes, 1/2/3-block
+# requests with probabilities 0.60/0.15/0.25, uniform LBAs -- then, with
+# drive 1 failed and a rebuild starting rebuild_after_us later, the read load
+# of bench_latency_qos's rebuild row: a sequential scanner and a uniform
+# reader at scan_iops / read_iops, ops requests each.  The card's busy share
+# is read over the first profile_requests of a second, identical replay.
+TIMED = dict(requests=20_000, gap_us=40.0, write_frac=0.85, profile_requests=2_000)
+TIMED_DEGRADED = dict(scan_iops=60_000, read_iops=30_000, ops=4_000,
+                      rebuild_after_us=50.0)
+
 # Mamba-2 serving (src/repro_torch/configs/mamba2_1_3b.py): requests, batch,
 # prompt and generated tokens; the decode check's prompt t and steps k.
 SERVE = dict(requests=8, batch=4, prompt=1024, gen=32)
@@ -150,7 +175,7 @@ def _emit(obj: dict) -> None:
 
 # --------------------------------------------------------------------- setup
 
-def array_config(scheme: str, device: str, geom: dict):
+def array_config(scheme: str, device: str, geom: dict, append_order: str = "rng"):
     from repro_torch.core.array import ZapRaidConfig
     from repro_torch.core.zns import ZnsConfig
 
@@ -158,7 +183,7 @@ def array_config(scheme: str, device: str, geom: dict):
         scheme=scheme, n_drives=4, group_size=geom["group"],
         logical_blocks=geom["logical_blocks"], hybrid=True, n_small=1,
         n_large=3, small_chunk_blocks=2, large_chunk_blocks=4,
-        append_order="rng", device=device,
+        append_order=append_order, device=device,
     )
     zns = ZnsConfig(n_zones=geom["zones"], zone_cap_blocks=geom["zone_cap_blocks"],
                     block_bytes=BLOCK_BYTES)
@@ -1086,7 +1111,309 @@ def card_vs_cpu(seed: int) -> dict:
     return out
 
 
-# ------------------------------------------------------ phase 6: serving
+# ------------------------------------------------- phase 6: timed pipeline
+
+def trace_requests(logical_blocks: int, n: int, seed: int):
+    """Exp#10's request mix (``benchmarks/run.py`` bench_trace) over
+    ``logical_blocks``: ``n`` open-loop requests, ``TIMED``'s arrival rate
+    and write share, 1-3 blocks at uniform LBAs."""
+    import numpy as np
+    from repro_torch.sim import Request
+
+    rng = np.random.default_rng(seed)
+    reqs, t = [], 0.0
+    for _ in range(n):
+        t += float(rng.exponential(TIMED["gap_us"]))
+        r = rng.random()
+        nb = 1 if r < 0.60 else (2 if r < 0.75 else 3)
+        lba = int(rng.integers(0, logical_blocks - nb))
+        op = "W" if rng.random() < TIMED["write_frac"] else "R"
+        reqs.append(Request(t, "trace", op, lba, nb))
+    return reqs
+
+
+def timed_pipeline(device: str, geom: dict, seed: int):
+    """``HandlerPipeline.build_timed`` on the hybrid deployment with the
+    Zone-Append order taken from the device model, preconditioned with phase
+    2's fill.  Returns the pipeline, the volume's image and a payload source
+    that keeps the image up to date with every write it makes."""
+    import numpy as np
+    from repro_torch.core.handlers import HandlerPipeline
+
+    cfg, zns = array_config("raid5", device, geom, append_order="timed")
+    pipe = HandlerPipeline.build_timed(cfg, zns, seed=seed)
+    want = payload(cfg.logical_blocks, seed)
+    pipe.precondition((lba, want[lba : lba + n])
+                      for lba, n in traffic(cfg.logical_blocks, seed))
+    rng = np.random.default_rng(seed + 2)
+
+    def payload_fn(r):
+        blk = rng.integers(0, 256, (r.n_blocks, BLOCK_BYTES), dtype=np.uint8)
+        want[r.lba : r.lba + r.n_blocks] = blk  # requests dispatch in this order
+        return blk
+
+    return pipe, want, payload_fn
+
+
+def _latency(rec, op: str) -> dict:
+    p = rec.percentiles(op=op)
+    return {k: p[k] for k in ("n", "p50", "p99", "p999", "mean", "max")}
+
+
+def timed_replay(device: str, geom: dict, seed: int, ph: Phase,
+                 n_requests: int = TIMED["requests"]):
+    """Replay Exp#10's mix on the timed pipeline, then read back every
+    acknowledged block.  Returns the pipeline and the volume's image."""
+    pipe, want, payload_fn = timed_pipeline(device, geom, seed)
+    reqs = trace_requests(pipe.array.cfg.logical_blocks, n_requests, seed + 3)
+    t, c = time.perf_counter(), time.process_time()
+    rec = pipe.replay(reqs, payload_fn)
+    wall, cpu = time.perf_counter() - t, time.process_time() - c
+    check_read_all(pipe.array, want, "timed read-back")
+    eng = pipe.engine
+    ph.info.update({
+        "requests": n_requests, "write_us": _latency(rec, "W"), "read_us": _latency(rec, "R"),
+        "throughput_mib_s": rec.throughput_mib_s(BLOCK_BYTES, "W"),
+        "virtual_us": rec.span_us(), "events_fired": eng.events_fired,
+        "host_s": wall, "host_cpu_s": cpu, "host_us_per_request": 1e6 * wall / n_requests,
+        "encode_sync_us": {"count": rec.note_counts["encode_sync_us"],
+                           "sum": rec.notes["encode_sync_us"]},
+        "group_barrier_wait_us": {"count": rec.note_counts["group_barrier_wait_us"],
+                                  "sum": rec.notes["group_barrier_wait_us"]},
+        "stage_means_us": rec.stage_means(), "counters": dict(pipe.counters),
+        "readback": "byte-exact",
+    })
+    return pipe, want
+
+
+def timed_degraded(pipe, want, seed: int, ph: Phase, n_ops: int = TIMED_DEGRADED["ops"]) -> None:
+    """On the pipeline ``timed_replay`` left: fail drive 1, start its rebuild
+    ``rebuild_after_us`` later, replay the rebuild-under-load read load, then
+    read back every acknowledged block.  The read-back before it ran outside
+    the measured timeline, so the drives start idle (``precondition(())``)."""
+    from repro_torch.sim import TenantSpec, multi_tenant
+
+    pipe.precondition(())
+    t0 = pipe.engine.now
+    pipe.array.fail_drive(1)
+    pipe.schedule_rebuild(1, at=t0 + TIMED_DEGRADED["rebuild_after_us"])
+    logical = pipe.array.cfg.logical_blocks
+    load = [dataclasses.replace(r, t_us=r.t_us + t0) for r in multi_tenant([
+        TenantSpec(name="scanner", kind="seq", n_ops=n_ops,
+                   rate_iops=TIMED_DEGRADED["scan_iops"], read_frac=1.0, seed=seed + 31),
+        TenantSpec(name="reader", kind="uniform", n_ops=n_ops,
+                   rate_iops=TIMED_DEGRADED["read_iops"], read_frac=1.0, seed=seed + 32),
+    ], logical_blocks=logical)]
+    events0 = pipe.engine.events_fired
+    t = time.perf_counter()
+    rec = pipe.replay(load)
+    wall = time.perf_counter() - t
+    check_read_all(pipe.array, want, "read-back after the timed rebuild")
+    ph.info.update({
+        "reads": 2 * n_ops, "read_us": _latency(rec, "R"),
+        "rebuild_device_us": rec.notes["rebuild_device_us"],
+        "virtual_us": pipe.engine.now - t0, "events_fired": pipe.engine.events_fired - events0,
+        "host_s": wall, "host_us_per_request": 1e6 * wall / (2 * n_ops),
+        "degraded_reads": pipe.array.stats.degraded_reads, "readback": "byte-exact",
+    })
+
+
+def timed_busy_share(geom: dict, seed: int, ph: Phase,
+                     n_requests: int = TIMED["profile_requests"]) -> None:
+    """The card's busy share of the timed path: the first ``n_requests`` of
+    ``timed_replay``'s stream on a second pipeline built the same way, under
+    ``torch.profiler``; kernel device time (and copies apart) over wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts
+
+    pipe, _, payload_fn = timed_pipeline("cuda", geom, seed)
+    reqs = trace_requests(pipe.array.cfg.logical_blocks, TIMED["requests"], seed + 3)[:n_requests]
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.replay(reqs, payload_fn)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    after = launch_counts()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    copies = [e for e in ev if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in ev if e not in copies]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
+    ph.info.update({
+        "requests": n_requests, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+        "copy_ms": copy_ms, "busy_share": kernel_ms / wall_ms,
+        "busy_share_with_copies": (kernel_ms + copy_ms) / wall_ms,
+        "kernels": sum(e.count for e in kernels),
+        # what the wrappers launched in the window, to hold the count above to
+        "launches_in_window": {k: after[k] - before[k] for k in after if after[k] > before[k]},
+        "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]],
+    })
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel of the timed path")
+
+
+# The three scenarios timed_card_vs_cpu runs on both devices: the reference's
+# timed benchmarks at their own geometry (256-byte blocks, 64-block zones).
+
+def scenario_exp10(device: str):
+    """``benchmarks/run.py`` bench_trace: RAID-5 hybrid (3+1), G=8, 20 zones,
+    600 requests of Exp#10's mix."""
+    import numpy as np
+    from repro_torch.core.array import ZapRaidConfig
+    from repro_torch.core.handlers import HandlerPipeline
+    from repro_torch.core.zns import ZnsConfig
+    from repro_torch.sim import Request
+
+    rng = np.random.default_rng(5)
+    cfg = ZapRaidConfig(scheme="raid5", n_drives=4, hybrid=True, n_small=1, n_large=3,
+                        group_size=8, small_chunk_blocks=1, large_chunk_blocks=2,
+                        logical_blocks=256, gc_free_segments_low=1, device=device)
+    pipe = HandlerPipeline.build_timed(
+        cfg, ZnsConfig(n_zones=20, zone_cap_blocks=64, block_bytes=256), seed=5)
+    pipe.precondition((lba, rng.integers(0, 256, (1, 256), dtype=np.uint8))
+                      for lba in range(256))
+    reqs, t = [], 0.0
+    for _ in range(600):
+        t += float(rng.exponential(40.0))
+        r = rng.random()
+        n = 1 if r < 0.60 else (2 if r < 0.75 else 3)
+        lba = int(rng.integers(0, 256 - n))
+        reqs.append(Request(t, "trace", "W" if rng.random() < 0.85 else "R", lba, n))
+    pipe.replay(reqs)
+    return pipe
+
+
+def scenario_qos_rebuild(device: str):
+    """``benchmarks/run.py`` bench_latency_qos, recovery under load: RAID-5
+    (3+1), G=8, 16 zones, drive 1 failed, its rebuild at 50 us under a
+    sequential scanner (60 k IOPS) and a uniform reader (30 k IOPS), 800
+    reads each."""
+    import numpy as np
+    from repro_torch.core.array import ZapRaidConfig
+    from repro_torch.core.handlers import HandlerPipeline
+    from repro_torch.core.zns import ZnsConfig
+    from repro_torch.sim import TenantSpec, multi_tenant
+
+    rng = np.random.default_rng(11)
+    cfg = ZapRaidConfig(scheme="raid5", n_drives=4, group_size=8, chunk_blocks=1,
+                        logical_blocks=256, gc_free_segments_low=1, device=device)
+    pipe = HandlerPipeline.build_timed(
+        cfg, ZnsConfig(n_zones=16, zone_cap_blocks=64, block_bytes=256), seed=11)
+    pipe.precondition((lba, rng.integers(0, 256, (1, 256), dtype=np.uint8))
+                      for lba in range(256))
+    pipe.array.fail_drive(1)
+    pipe.schedule_rebuild(1, at=50.0)
+    pipe.replay(multi_tenant([
+        TenantSpec(name="scanner", kind="seq", n_ops=800, rate_iops=60_000,
+                   read_frac=1.0, seed=31),
+        TenantSpec(name="reader", kind="uniform", n_ops=800, rate_iops=30_000,
+                   read_frac=1.0, seed=32),
+    ], logical_blocks=256))
+    return pipe
+
+
+def scenario_raid6_degraded(device: str):
+    """RAID-6 (2+2) hybrid with Exp#10's geometry and drive 1 failed: 600
+    requests, half reads, at 40 k IOPS -- Zone-Append groups and Zone-Write
+    stripes encode, and degraded reads decode, in GF(256)."""
+    import numpy as np
+    from repro_torch.core.array import ZapRaidConfig
+    from repro_torch.core.handlers import HandlerPipeline
+    from repro_torch.core.zns import ZnsConfig
+    from repro_torch.sim import TenantSpec, synthetic
+
+    rng = np.random.default_rng(7)
+    cfg = ZapRaidConfig(scheme="raid6", n_drives=4, hybrid=True, n_small=1, n_large=3,
+                        group_size=8, small_chunk_blocks=1, large_chunk_blocks=2,
+                        logical_blocks=256, gc_free_segments_low=1, device=device)
+    pipe = HandlerPipeline.build_timed(
+        cfg, ZnsConfig(n_zones=20, zone_cap_blocks=64, block_bytes=256), seed=7)
+    pipe.precondition((lba, rng.integers(0, 256, (2, 256), dtype=np.uint8))
+                      for lba in range(0, 256, 2))
+    pipe.array.fail_drive(1)
+    pipe.replay(synthetic(TenantSpec(name="mix", kind="uniform", n_ops=600,
+                                     rate_iops=40_000, read_frac=0.5, n_blocks=2,
+                                     seed=8), 256))
+    return pipe
+
+
+TIMED_SCENARIOS = {"exp10": scenario_exp10, "qos_rebuild": scenario_qos_rebuild,
+                   "raid6_degraded": scenario_raid6_degraded}
+
+
+def timed_outputs(pipe) -> dict:
+    """Everything a timed run produces, but the sum of ``encode_sync_us``
+    (the host wall time of the group encodes; its count stays): samples,
+    percentiles, stage sums and counts, notes, stage counters, the virtual
+    clock, events fired, the drives' bookings and images, L2P and Stats."""
+    import numpy as np
+    from repro_torch.core.zns import drive_images
+
+    rec, arr = pipe.recorder, pipe.array
+    tenants = sorted({s.tenant for s in rec.samples})
+    return {
+        "samples": [dataclasses.astuple(s) for s in rec.samples],
+        "percentiles": {f"{t}/{op}": rec.percentiles(op=op, tenant=t)
+                        for t in (None, *tenants) for op in (None, "R", "W")},
+        "stage_sums": dict(rec.stage_sums), "stage_counts": dict(rec.stage_counts),
+        "tenant_stage_sums": dict(rec.tenant_stage_sums),
+        "tenant_stage_counts": dict(rec.tenant_stage_counts),
+        "notes": {k: v for k, v in rec.notes.items() if k != "encode_sync_us"},
+        "note_counts": dict(rec.note_counts), "counters": dict(pipe.counters),
+        "now": pipe.engine.now, "events_fired": pipe.engine.events_fired,
+        "io_watermark": pipe.engine.io_watermark,
+        "bookings": [(d.t_zone_free, d.channels, d.za_slots, d.chunk_done, d.busy_us)
+                     for d in arr.drives],
+        "images": drive_images(arr.drives),
+        "l2p": arr.l2p.get_many(np.arange(arr.cfg.logical_blocks)),
+        "stats": dataclasses.asdict(arr.stats),
+    }
+
+
+def _same(a, b) -> bool:
+    """Equality of nested containers of numbers and arrays; NaN == NaN."""
+    import math
+
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, float) and math.isnan(a):
+        return isinstance(b, float) and math.isnan(b)
+    return a == b
+
+
+def output_differences(a: dict, b: dict) -> list[str]:
+    """The keys of two ``timed_outputs`` that differ."""
+    return [k for k in a if not _same(a[k], b.get(k))] + [k for k in b if k not in a]
+
+
+def timed_card_vs_cpu(seed: int, device: str = "cuda") -> dict:
+    """Each of ``TIMED_SCENARIOS`` on ``device`` and on the CPU: every output
+    but the host-clock sum must be equal."""
+    out = {}
+    for name, scenario in TIMED_SCENARIOS.items():
+        a, b = scenario(device), scenario("cpu")
+        oa, ob = timed_outputs(a), timed_outputs(b)
+        bad = output_differences(oa, ob)
+        if bad:
+            raise AssertionError(f"timed {name}: {device} and cpu differ in {bad}")
+        out[name] = {"result": "equal", "samples": len(oa["samples"]),
+                     "events_fired": oa["events_fired"], "virtual_us": oa["now"],
+                     "encode_groups": oa["note_counts"].get("encode_sync_us", 0)}
+    return out
+
+
+# ------------------------------------------------------ phase 7: serving
 
 def mamba2_model(seed: int, ph: Phase):
     """``mamba2-1.3b`` at full width on the card, random weights from
@@ -1293,6 +1620,24 @@ def main() -> int:
         ph.info["result"] = card_vs_cpu(SEED)
     gc.collect()
 
+    reset_launch_counts()  # the timed path's launches start here
+    with Phase("timed") as ph:
+        pipe, want = timed_replay("cuda", FULL, SEED, ph)
+    c = launch_counts()
+    if not (c["parity_xor_batch"] and c["parity_xor"]):
+        raise AssertionError(f"the timed replay did not launch xor_reduce and stripe_xor: {c}")
+    with Phase("timed_degraded") as ph:
+        timed_degraded(pipe, want, SEED, ph)
+    timed_path = launch_counts()  # read just after the timed path
+    del pipe, want
+    gc.collect()
+    with Phase("timed_profile") as ph:
+        timed_busy_share(FULL, SEED, ph)
+    gc.collect()
+    with Phase("timed_card_vs_cpu") as ph:
+        ph.info["result"] = timed_card_vs_cpu(SEED)
+    gc.collect()
+
     with Phase("mamba2_setup") as ph:
         model = mamba2_model(SEED, ph)
     reset_launch_counts()  # the serving path's launches start here
@@ -1317,8 +1662,10 @@ def main() -> int:
     for r in ssd_rows:
         r["launches"] = serving[r["name"]]
     rows += ssd_rows
+    for r in rows:
+        r["timed_launches"] = timed_path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_launches")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -126,7 +126,7 @@ class ZapRaidConfig:
     append_seed: int = 1234
     # Zone-Append completion-order source: "timed" derives the disorder from
     # the discrete-event device model (fastest command wins the write
-    # pointer; requires a timed pipeline, not yet ported); "rng" is the seeded
+    # pointer; requires a timed pipeline, repro_torch.sim); "rng" is the seeded
     # permutation fallback used by the standalone functional simulator.
     append_order: str = "timed"
 
@@ -165,7 +165,7 @@ class Stats:
     h2d_bytes: int = 0
     d2h_copies: int = 0
     d2h_bytes: int = 0
-    # cache tier (not yet ported), all zero when no cache is attached
+    # cache tier (repro_torch.cache), all zero when no cache is attached
     cache_hits: int = 0
     cache_misses: int = 0
     l2p_cache_hits: int = 0      # mapping-block fault-ins served by the cache
@@ -363,7 +363,7 @@ class ZapRAIDArray:
         self.ts_counter = 1
         self.next_seg_id = 0
         self.rng = np.random.default_rng(cfg.append_seed)
-        # Timed-pipeline hooks (the timed simulator, not yet ported).  When a
+        # Timed-pipeline hooks (repro_torch.sim / repro_torch.core.handlers).  When a
         # discrete-event engine drives this array, ``append_plan_fn`` maps a
         # Zone-Append group's ops to their timing-derived completion order
         # (replacing the RNG permutation), and ``commit_listener`` observes
@@ -376,7 +376,7 @@ class ZapRAIDArray:
         # engine's accounting so latency stats stay honest about host-side
         # codec stalls (virtual time is unaffected: the encode is host work).
         self.encode_listener = None
-        # Observability hook (the timed handlers, not yet ported): called as
+        # Observability hook (repro_torch.obs via repro_torch.core.handlers): called as
         # ``obs_event(name, **args)`` at instrumentation points the array
         # alone can see -- degraded decodes, GC pass begin/end.  None (the
         # default) keeps every fast path at one attribute test.
@@ -426,7 +426,7 @@ class ZapRAIDArray:
         # those zones must route through reconstruction until the rebuild
         # actor reaches them.  Empty outside a paced rebuild.
         self._rebuild_pending: set[tuple[int, int]] = set()
-        # Optional cache tier (a ``ZnsCacheTier``) -- see attach_cache.
+        # Optional cache tier (repro_torch.cache.ZnsCacheTier) -- see attach_cache.
         self.cache = None
         # True while gc_once() is restaging survivors: segment opens may dip
         # into the gc_reserved_zones escrow only then.
@@ -593,7 +593,7 @@ class ZapRAIDArray:
     # ------------------------------------------------------------- cache tier
 
     def attach_cache(self, cache) -> None:
-        """Install a read/write cache tier (a ``ZnsCacheTier``).
+        """Install a read/write cache tier (``repro_torch.cache.ZnsCacheTier``).
 
         The cache indexes *logical* keys (LBA for user blocks, mapping-group
         id for offloaded L2P blocks), so GC relocation and drive rebuild --

@@ -1,13 +1,29 @@
 """Shared helpers for the port's parity tests: one configuration built in both
 packages (the JAX reference and ``repro_torch`` on the CPU), seeded workloads
-made with numpy, and a whole-state comparison."""
+made with numpy, a whole-state comparison, and for the timed pipeline a
+namespace per package, pipelines built alike in both and a comparison of
+everything a timed run produces."""
 import dataclasses
+import math
+import types
 
 import numpy as np
 
+from repro import cache as jcache
+from repro import obs as jobs
+from repro import sim as jsim
 from repro.core import array as jarray
+from repro.core import handlers as jhandlers
+from repro.core import recovery as jrecovery
+from repro.core import segment as jsegment
 from repro.core import zns as jzns
+from repro_torch import cache as tcache
+from repro_torch import obs as tobs
+from repro_torch import sim as tsim
 from repro_torch.core import array as tarray
+from repro_torch.core import handlers as thandlers
+from repro_torch.core import recovery as trecovery
+from repro_torch.core import segment as tsegment
 from repro_torch.core import zns as tzns
 from repro_torch.core.zns import drive_images
 
@@ -15,19 +31,21 @@ BB = 256  # block bytes: small, a multiple of 4 (int32 lanes)
 LOGICAL = 256
 
 
-def configs(scheme="raid5", n_drives=4, *, hybrid=False, jax_kw=None, **kw):
+def configs(scheme="raid5", n_drives=4, *, hybrid=False, jax_kw=None,
+            zones=12, zone_cap=64, **kw):
     """(jax cfg, jax zns, port cfg, port zns) for one configuration: G=8,
-    12 zones of 64 blocks per drive; ``jax_kw`` goes to the reference only."""
+    ``zones`` zones of ``zone_cap`` blocks per drive (12 of 64 unless given);
+    ``kw`` overrides any config field, ``jax_kw`` goes to the reference only."""
     if hybrid:
-        kw = dict(hybrid=True, n_small=1, n_large=1, small_chunk_blocks=1,
-                  large_chunk_blocks=4, **kw)
-    common = dict(scheme=scheme, n_drives=n_drives, group_size=8,
-                  chunk_blocks=1, logical_blocks=LOGICAL, gc_free_segments_low=1,
-                  append_order="rng", **kw)
+        kw = {**dict(hybrid=True, n_small=1, n_large=1, small_chunk_blocks=1,
+                     large_chunk_blocks=4), **kw}
+    common = {**dict(scheme=scheme, n_drives=n_drives, group_size=8,
+                     chunk_blocks=1, logical_blocks=LOGICAL, gc_free_segments_low=1,
+                     append_order="rng"), **kw}
     jc = jarray.ZapRaidConfig(**common, **(jax_kw or {}))
     tc = tarray.ZapRaidConfig(**common, device="cpu")
-    jz = jzns.ZnsConfig(n_zones=12, zone_cap_blocks=64, block_bytes=BB)
-    tz = tzns.ZnsConfig(n_zones=12, zone_cap_blocks=64, block_bytes=BB)
+    jz = jzns.ZnsConfig(n_zones=zones, zone_cap_blocks=zone_cap, block_bytes=BB)
+    tz = tzns.ZnsConfig(n_zones=zones, zone_cap_blocks=zone_cap, block_bytes=BB)
     return jc, jz, tc, tz
 
 
@@ -107,3 +125,108 @@ def lifecycle_identical(scheme, n, hybrid):
     assert a.gc_once() == b.gc_once()
     assert_same_state(a, b)
     read_all_equal(a, b)
+
+
+# ------------------------------------------------------------ timed pipeline
+
+# One namespace per package, so a scenario is written once and run through
+# both: the reference (its default numpy codec path) and the port on the CPU.
+JAX = types.SimpleNamespace(
+    name="jax", array=jarray, zns=jzns, handlers=jhandlers, sim=jsim, obs=jobs,
+    cache=jcache, recovery=jrecovery, segment=jsegment)
+PORT = types.SimpleNamespace(
+    name="torch", array=tarray, zns=tzns, handlers=thandlers, sim=tsim, obs=tobs,
+    cache=tcache, recovery=trecovery, segment=tsegment)
+
+
+def timed_pair(scheme="raid5", n_drives=4, *, seed=0, flush_interval_us=1000.0,
+               precondition_rounds=1, pkgs=(JAX, PORT), **kw):
+    """Two timed pipelines, one per package of ``pkgs`` (the reference's and
+    the port's), built by ``build_timed`` from :func:`configs` (Zone-Append
+    order from the device model, ``kw`` as there) and preconditioned alike
+    with ``precondition_rounds`` seeded overwrites of the whole volume."""
+    kw.setdefault("append_order", "timed")
+    jc, jz, tc, tz = configs(scheme, n_drives, **kw)
+    pipes = []
+    for pkg in pkgs:
+        cfg, zns = (jc, jz) if pkg is JAX else (tc, tz)
+        pipe = pkg.handlers.HandlerPipeline.build_timed(
+            cfg, zns, seed=seed, flush_interval_us=flush_interval_us)
+        if precondition_rounds:
+            rng = np.random.default_rng(seed)
+            pipe.precondition(
+                (lba, rng.integers(0, 256, (1, zns.block_bytes), dtype=np.uint8))
+                for _ in range(precondition_rounds)
+                for lba in range(cfg.logical_blocks))
+        pipes.append(pipe)
+    return pipes[0], pipes[1]
+
+
+def shift(reqs, t0):
+    """A request stream re-based to start at virtual time ``t0``."""
+    return [dataclasses.replace(r, t_us=r.t_us + t0) for r in reqs]
+
+
+def same(a, b):
+    """Equality of nested dicts/lists/tuples of numbers where NaN == NaN."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, float) and isinstance(b, float) and math.isnan(a):
+        return math.isnan(b)
+    return a == b
+
+
+def assert_same_recorder(ra, rb):
+    """Every output of two ``LatencyRecorder`` s: samples, percentiles (all,
+    by op, by tenant), stage sums and counts, notes and their counts.  The
+    one host-clock value, the sum of ``encode_sync_us`` (the host wall time
+    of the group encodes), is compared by its count only."""
+    assert [dataclasses.astuple(s) for s in ra.samples] == \
+        [dataclasses.astuple(s) for s in rb.samples]
+    tenants = sorted({s.tenant for s in ra.samples})
+    for tenant in (None, *tenants):
+        for op in (None, "R", "W"):
+            assert same(ra.percentiles(op=op, tenant=tenant),
+                        rb.percentiles(op=op, tenant=tenant)), (tenant, op)
+    assert dict(ra.stage_sums) == dict(rb.stage_sums)
+    assert dict(ra.stage_counts) == dict(rb.stage_counts)
+    assert dict(ra.tenant_stage_sums) == dict(rb.tenant_stage_sums)
+    assert dict(ra.tenant_stage_counts) == dict(rb.tenant_stage_counts)
+    host = "encode_sync_us"
+    assert {k: v for k, v in ra.notes.items() if k != host} == \
+        {k: v for k, v in rb.notes.items() if k != host}
+    assert (host in ra.notes) == (host in rb.notes)
+    assert dict(ra.note_counts) == dict(rb.note_counts)
+    assert ra.to_bench_rows("x") == rb.to_bench_rows("x")
+    assert ra.span_us() == rb.span_us()
+
+
+def assert_same_timing(da, db):
+    """A timed drive's bookings (not part of its image): zone and channel
+    free times, Zone-Append slots, planned and booked chunk completions."""
+    assert np.array_equal(da.t_zone_free, db.t_zone_free)
+    assert da.channels == db.channels
+    assert da.za_slots == db.za_slots
+    assert da.chunk_done == db.chunk_done
+    assert {z: list(q) for z, q in da._planned.items()} == \
+        {z: list(q) for z, q in db._planned.items()}
+    assert da.busy_us == db.busy_us
+
+
+def assert_same_timed(pa, pb):
+    """Two timed pipelines ended alike: recorder, stage counters, virtual
+    clock, events fired, I/O watermark, drive bookings, and the array's
+    drive images, L2P, validity and Stats."""
+    assert_same_recorder(pa.recorder, pb.recorder)
+    assert pa.counters == pb.counters
+    assert pa.engine.now == pb.engine.now
+    assert pa.engine.events_fired == pb.engine.events_fired
+    assert pa.engine.io_watermark == pb.engine.io_watermark
+    assert pa.engine.pending() == pb.engine.pending()
+    for da, db in zip(pa.array.drives, pb.array.drives, strict=True):
+        assert_same_timing(da, db)
+    assert_same_state(pa.array, pb.array)

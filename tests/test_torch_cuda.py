@@ -332,3 +332,34 @@ def test_ssd_scan_refuses_what_it_cannot_take(cuda):
         ssd.ssd_scan(torch.zeros(2, 256, 8, device=cuda), dt.repeat(1, 4), a,
                      torch.zeros(2, 256, 16, device=cuda), torch.zeros(2, 256, 16, device=cuda),
                      chunk=256)
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["exp10", "raid6_degraded"])
+def test_timed_replay_on_the_card_equals_the_cpu(cuda, name):
+    """A small timed replay (the reference's Exp#10 trace; a degraded RAID-6
+    replay) through the card's codec kernels and through the plain versions:
+    latency samples, percentiles, notes but the host-clock encode sum,
+    counters, the virtual clock, events fired, bookings, drive images, L2P
+    and Stats are all equal."""
+    smoke = _smoke()
+    scenario = smoke.TIMED_SCENARIOS[name]
+    reset_launch_counts()
+    on_card = smoke.timed_outputs(scenario("cuda"))
+    launched = launch_counts()
+    on_cpu = smoke.timed_outputs(scenario("cpu"))
+    assert smoke.output_differences(on_card, on_cpu) == []
+    assert launch_counts() == launched  # the CPU run launched nothing
+    want = ("parity_xor_batch", "parity_xor") if name == "exp10" else \
+        ("gf256_matmul_batch", "gf256_matmul")
+    assert all(launched[k] > 0 for k in want), launched

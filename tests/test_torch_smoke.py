@@ -8,6 +8,7 @@ import subprocess
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from repro_torch.kernels import _build
@@ -193,3 +194,78 @@ def test_stripe_loads_first_raises_on_a_missing_instance(monkeypatch):
 def test_pcie_peak_rate_is_gen5_x16():
     # 32 GT/s x 16 lanes x 128/130 / 8 bits: ~63.0 GB/s each way
     assert _smoke().PCIE_BYTES_PER_S == pytest.approx(63.015e9, rel=1e-4)
+
+
+# ------------------------------------------------ the timed pipeline's phases
+
+# The raid_end_to_end rehearsal geometry: 12 zones of 1,024 blocks, a 4,096-
+# block volume, G=32.
+TINY = dict(zones=12, zone_cap_blocks=1024, logical_blocks=4096, group=32)
+
+
+def _count_plain_versions(monkeypatch):
+    """Count calls of the codec kernels' plain versions: on the CPU, where a
+    kernel would be launched on the card."""
+    from repro_torch.kernels import ref
+
+    calls = {}
+    for name in ("parity_xor_ref", "parity_xor_batch_ref", "gf256_matmul_ref",
+                 "gf256_matmul_batch_ref"):
+        def counted(*a, _fn=getattr(ref, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ref, name, counted)
+    return calls
+
+
+def test_timed_phases_rehearse_on_the_cpu(monkeypatch):
+    smoke = _smoke()
+    calls = _count_plain_versions(monkeypatch)
+    ph = smoke.Phase("timed")
+    pipe, want = smoke.timed_replay("cpu", TINY, 0, ph, n_requests=400)
+    info = ph.info
+    assert info["write_us"]["n"] + info["read_us"]["n"] == 400
+    assert info["write_us"]["p50"] > 0 and info["read_us"]["p999"] >= info["read_us"]["p99"]
+    assert info["encode_sync_us"]["count"] > 0 and info["throughput_mib_s"] > 0
+    assert info["events_fired"] == pipe.engine.events_fired > 400
+    assert info["readback"] == "byte-exact"
+    # the group encode (xor_reduce) and the Zone-Write stripes (stripe_xor)
+    assert calls["parity_xor_batch_ref"] and calls["parity_xor_ref"]
+    ph = smoke.Phase("timed_degraded")
+    smoke.timed_degraded(pipe, want, 0, ph, n_ops=200)
+    info = ph.info
+    assert info["read_us"]["n"] == 400 and info["rebuild_device_us"] > 0
+    assert info["readback"] == "byte-exact"
+    assert not pipe.array.drives[1].failed
+
+
+def test_timed_replay_is_deterministic_and_the_comparison_sees_a_difference():
+    smoke = _smoke()
+    a = smoke.timed_outputs(smoke.scenario_exp10("cpu"))
+    b = smoke.timed_outputs(smoke.scenario_exp10("cpu"))
+    assert smoke.output_differences(a, b) == []
+    b["samples"][7] = b["samples"][7][:3] + (b["samples"][7][3] + 1e-9,)
+    b["images"][2]["data"][0, 0, 0] ^= 1
+    b["percentiles"]["None/R"]["p99"] = float("nan")
+    assert smoke.output_differences(a, b) == ["samples", "percentiles", "images"]
+
+
+def test_timed_card_vs_cpu_rehearses_on_the_cpu(monkeypatch):
+    smoke = _smoke()
+    calls = _count_plain_versions(monkeypatch)
+    got = smoke.timed_card_vs_cpu(0, device="cpu")
+    assert list(got) == ["exp10", "qos_rebuild", "raid6_degraded"]
+    assert all(r["result"] == "equal" and r["samples"] >= 600 for r in got.values())
+    # the RAID-6 scenario runs both GF(256) forms
+    assert calls["gf256_matmul_ref"] and calls["gf256_matmul_batch_ref"]
+
+
+def test_trace_requests_follow_the_exp10_mix():
+    smoke = _smoke()
+    reqs = smoke.trace_requests(65_536, 20_000, 3)
+    sizes = np.bincount([r.n_blocks for r in reqs], minlength=4)[1:] / len(reqs)
+    assert np.allclose(sizes, [0.60, 0.15, 0.25], atol=0.015)
+    assert abs(np.mean([r.op == "W" for r in reqs]) - 0.85) < 0.01
+    gaps = np.diff([0.0] + [r.t_us for r in reqs])
+    assert abs(gaps.mean() - 40.0) < 1.0 and (gaps >= 0).all()
+    assert all(0 <= r.lba <= 65_536 - r.n_blocks for r in reqs)
