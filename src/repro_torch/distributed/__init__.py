@@ -1,0 +1,2 @@
+"""Distributed-training runtime pieces: the elastic runtime and the
+group-bounded commit scheduler (``elastic``)."""

@@ -12,13 +12,22 @@ and the time each phase took.
 The model is randomly initialised from ``--seed``; no weights are loaded.
 ``--smoke/--no-smoke`` picks the smoke-size or the full configuration (the
 reference's ``--smoke`` cannot be turned off).  The default architecture is
-``mamba2-1.3b``, the one family the port runs.  The reference's
-``--storage-sim`` scenario is not ported yet.
+``mamba2-1.3b``, the one family the port runs.
+
+With ``--storage-sim`` the token loop is replaced by the storage-side view of
+the same cell (:func:`run_storage_sim`): ``--jobs`` simulated training jobs
+stream ``--saves`` erasure-coded checkpoint saves each through the async
+block service (``repro_torch.service``) while latency-class serving reads run
+alongside; the report is per-tenant tail latency on the virtual clock under
+``--policy`` (``both`` prints the QoS-vs-FIFO comparison).  ``--device``
+picks the device of the array's stripe codec; the virtual times do not
+depend on it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu    # smoke size, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
       --prompt-len 1024 --gen-len 32                                 # full width, GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --storage-sim --policy both
 """
 from __future__ import annotations
 
@@ -102,7 +111,40 @@ def serve(model, queue: Sequence[np.ndarray], *, batch: int, gen_len: int,
     return st
 
 
-def run(argv=None) -> ServeStats:
+def run_storage_sim(args) -> dict:
+    """Checkpoint traffic at scale under serving, on the virtual clock.
+    Prints the reference's report lines; returns the results by policy."""
+    from repro_torch.service.scenario import checkpoint_under_serving
+
+    policies = ("qos", "fifo") if args.policy == "both" else (args.policy,)
+    results = {}
+    for pol in policies:
+        res = checkpoint_under_serving(
+            policy=pol, n_jobs=args.jobs, n_saves=args.saves, seed=args.seed,
+            device=args.device,
+        )
+        results[pol] = res
+        ten = res["summary"]["tenants"]
+        print(
+            f"[{pol:4s}] serve read p50 {res['serve_p50_us']:7.1f}us "
+            f"p99 {res['serve_p99_us']:7.1f}us (n={res['serve_n']}) | "
+            f"ckpt save mean {res['ckpt_save_mean_us']:8.1f}us "
+            f"max {res['ckpt_save_max_us']:8.1f}us | "
+            f"restore bit-identical: {res['restore_ok']}"
+        )
+        for name in sorted(ten):
+            t = ten[name]
+            print(
+                f"       {name:6s} class={t['qos']:10s} accepted={t['accepted']:4d} "
+                f"rejected={t['rejected']:3d} completed={t['completed']:4d}"
+            )
+    if len(results) == 2:
+        gain = results["fifo"]["serve_p99_us"] / results["qos"]["serve_p99_us"]
+        print(f"QoS cuts the serving tenant's read p99 by {gain:.1f}x vs FIFO")
+    return results
+
+
+def run(argv=None) -> ServeStats | dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="mamba2-1.3b")
     ap.add_argument("--requests", type=int, default=8)
@@ -112,7 +154,16 @@ def run(argv=None) -> ServeStats:
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--storage-sim", action="store_true",
+                    help="run the checkpoint-under-serving storage scenario")
+    ap.add_argument("--policy", default="both", choices=("qos", "fifo", "both"))
+    ap.add_argument("--jobs", type=int, default=4)
+    ap.add_argument("--saves", type=int, default=2)
     args = ap.parse_args(argv)
+
+    if args.storage_sim:
+        check_device(args.device)
+        return run_storage_sim(args)
 
     cfg = get_config(args.arch)
     if args.smoke:

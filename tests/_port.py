@@ -2,7 +2,8 @@
 packages (the JAX reference and ``repro_torch`` on the CPU), seeded workloads
 made with numpy, a whole-state comparison, and for the timed pipeline a
 namespace per package, pipelines built alike in both and a comparison of
-everything a timed run produces."""
+everything a timed run produces (the block service's and checkpoint engine's
+outputs among them)."""
 import dataclasses
 import math
 import types
@@ -11,21 +12,31 @@ import numpy as np
 
 from repro import cache as jcache
 from repro import obs as jobs
+from repro import service as jservice
 from repro import sim as jsim
+from repro.checkpoint import state_parity as jparity
+from repro.checkpoint import zapraid_ckpt as jckpt
 from repro.core import array as jarray
 from repro.core import handlers as jhandlers
 from repro.core import recovery as jrecovery
 from repro.core import segment as jsegment
 from repro.core import zns as jzns
+from repro.distributed import elastic as jelastic
+from repro.service import scenario as jscenario
 from repro_torch import cache as tcache
 from repro_torch import obs as tobs
+from repro_torch import service as tservice
 from repro_torch import sim as tsim
+from repro_torch.checkpoint import state_parity as tparity
+from repro_torch.checkpoint import zapraid_ckpt as tckpt
 from repro_torch.core import array as tarray
 from repro_torch.core import handlers as thandlers
 from repro_torch.core import recovery as trecovery
 from repro_torch.core import segment as tsegment
 from repro_torch.core import zns as tzns
 from repro_torch.core.zns import drive_images
+from repro_torch.distributed import elastic as telastic
+from repro_torch.service import scenario as tscenario
 
 BB = 256  # block bytes: small, a multiple of 4 (int32 lanes)
 LOGICAL = 256
@@ -133,10 +144,18 @@ def lifecycle_identical(scheme, n, hybrid):
 # both: the reference (its default numpy codec path) and the port on the CPU.
 JAX = types.SimpleNamespace(
     name="jax", array=jarray, zns=jzns, handlers=jhandlers, sim=jsim, obs=jobs,
-    cache=jcache, recovery=jrecovery, segment=jsegment)
+    cache=jcache, recovery=jrecovery, segment=jsegment, service=jservice,
+    scenario=jscenario, ckpt=jckpt, parity=jparity, elastic=jelastic)
 PORT = types.SimpleNamespace(
     name="torch", array=tarray, zns=tzns, handlers=thandlers, sim=tsim, obs=tobs,
-    cache=tcache, recovery=trecovery, segment=tsegment)
+    cache=tcache, recovery=trecovery, segment=tsegment, service=tservice,
+    scenario=tscenario, ckpt=tckpt, parity=tparity, elastic=telastic)
+
+
+def cpu(pkg) -> dict:
+    """The keyword that puts one of the port's entry points on the CPU (the
+    reference takes none)."""
+    return {"device": "cpu"} if pkg is PORT else {}
 
 
 def timed_pair(scheme="raid5", n_drives=4, *, seed=0, flush_interval_us=1000.0,

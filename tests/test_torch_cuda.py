@@ -363,3 +363,82 @@ def test_timed_replay_on_the_card_equals_the_cpu(cuda, name):
     want = ("parity_xor_batch", "parity_xor") if name == "exp10" else \
         ("gf256_matmul_batch", "gf256_matmul")
     assert all(launched[k] > 0 for k in want), launched
+
+
+# ------------------------------------------------- service and checkpoint
+
+def _parity_shards(device, k=4):
+    rng = np.random.default_rng(k)
+    return [{"m": torch.from_numpy(rng.standard_normal((64, 33)).astype(np.float32)).to(device),
+             "b": torch.from_numpy(rng.standard_normal(1027).astype(np.float32))
+             .to(torch.bfloat16).to(device),
+             "q": torch.from_numpy(rng.integers(0, 256, 4099, dtype=np.uint8)).to(device)}
+            for _ in range(k)]
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_state_parity_on_the_card_equals_the_cpu(cuda, m):
+    """``encode_shards`` / ``reconstruct_shard`` on CUDA tensors launch the
+    single-stripe kernels on device memory and equal the CPU's plain path;
+    outputs stay on the card."""
+    from repro_torch.checkpoint import state_parity as sp
+
+    k, lost = 4, 2
+    card, host = _parity_shards(cuda, k), _parity_shards("cpu", k)
+    reset_launch_counts()
+    pc, ph = sp.encode_shards(card, m=m), sp.encode_shards(host, m=m)
+    rec = sp.reconstruct_shard(lost, {r: card[r] for r in range(k) if r != lost}, pc, k)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["gf256_matmul" if m == 2 else "parity_xor"] == 2 * 3  # 3 leaves, encode + rebuild
+    for a, b in zip(pc, ph):
+        for name in a:
+            assert a[name].is_cuda and a[name].dtype == torch.uint8
+            assert torch.equal(a[name].cpu(), b[name])
+    for name, leaf in card[lost].items():
+        assert rec[name].is_cuda and rec[name].dtype == leaf.dtype
+        assert torch.equal(rec[name], leaf)
+
+
+def test_checkpoint_under_serving_on_the_card_equals_the_cpu(cuda):
+    """The ``service/ckpt_vs_serve_p99_qos`` scenario with the array's codec
+    on the card and on the CPU: every output equal, the restore bit-exact,
+    the group kernel launched."""
+    from repro_torch.service.scenario import checkpoint_under_serving
+
+    reset_launch_counts()
+    on_card = checkpoint_under_serving(policy="qos", device="cuda")
+    launched = launch_counts()
+    on_cpu = checkpoint_under_serving(policy="qos", device="cpu")
+    assert _smoke()._same(on_card, on_cpu) and on_card["restore_ok"] is True
+    assert launched["parity_xor_batch"] > 0, launched
+
+
+def test_checkpoint_engine_restores_card_tensors(cuda):
+    """A RAID-6 engine on the card saves CUDA tensors (f32, bf16, an int32
+    scalar) and restores them, through two failed lanes and a crash
+    remount, as CUDA tensors of equal bits; the media equal a CPU engine's."""
+    from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
+    from repro_torch.core.zns import drive_images
+
+    def engine(device):
+        cfg = CheckpointConfig(n_lanes=5, scheme="raid6", group_size=8, block_bytes=512,
+                               zone_cap_blocks=256, n_zones=32, chunk_blocks=2, device=device)
+        return CheckpointEngine(cfg, logical_blocks=1 << 12)
+
+    rng = np.random.default_rng(5)
+    state = {"w": torch.from_numpy(rng.standard_normal((33, 17)).astype(np.float32)),
+             "m": torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(torch.bfloat16),
+             "step": torch.tensor(9, dtype=torch.int32)}
+    card = {k: v.to(cuda) for k, v in state.items()}
+    a, b = engine("cuda"), engine("cpu")
+    a.save(1, card)
+    b.save(1, state)
+    for x, y in zip(drive_images(a.array.drives), drive_images(b.array.drives)):
+        assert all(np.array_equal(x[k], y[k]) for k in x)
+    a.fail_lane(0)
+    a.fail_lane(3)
+    a = a.crash_and_remount()
+    out = a.restore(1, card)
+    for k, v in card.items():
+        assert out[k].is_cuda and out[k].dtype == v.dtype and torch.equal(out[k], v)

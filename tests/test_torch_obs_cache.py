@@ -162,6 +162,36 @@ def test_slo_monitor_decisions_match_reference():
     assert s["n_shrinks"] > 0 and s["n_restores"] > 0 and s["min_cap"] < s["default_cap"]
 
 
+def _slo_over_service(pkg, pipe):
+    """An ``SloMonitor`` on the real ``BlockDeviceService``: open-loop
+    latency-class reads beside a closed-loop checkpoint-class aggressor
+    writing 8-block extents."""
+    svc = pkg.service.BlockDeviceService(pipe, max_inflight=8, policy="qos")
+    svc.register("serve", pkg.service.LATENCY)
+    svc.register("job", pkg.service.QosClass("ckpt", priority=2, max_inflight=6))
+    reg = pkg.obs.MetricsRegistry()
+    mon = pkg.obs.SloMonitor(svc, "serve", 150.0, klass="ckpt", window_us=1500.0,
+                             interval_us=250.0, min_samples=8, registry=reg)
+    mon.start(0.0)
+    for i in range(300):
+        svc.submit_read("serve", (i * 11) % (LOGICAL - 1), at=40.0 * i)
+    aggr = pkg.sim.synthetic(pkg.sim.TenantSpec(
+        name="job", kind="uniform", n_ops=300, n_blocks=8, read_frac=0.0,
+        arrival="closed", window=32, seed=17), LOGICAL)
+    pkg.service.ClosedLoopClient(svc, "job", aggr, window=32).start(0.0)
+    svc.drain()
+    return mon.history, mon.actions, mon.summary(), reg.snapshot(), svc.summary()
+
+
+def test_slo_monitor_over_the_block_service_matches_reference():
+    pa, pb = timed_pair("raid5", 4, seed=3, flush_interval_us=200.0)
+    a, b = _slo_over_service(JAX, pa), _slo_over_service(PORT, pb)
+    assert same(a, b)
+    assert_same_timed(pa, pb)
+    s = b[2]
+    assert s["n_shrinks"] > 0 and s["n_restores"] > 0 and s["min_cap"] < s["default_cap"]
+
+
 # ------------------------------------------------------------------ sketch
 
 @pytest.mark.parametrize("decay_every", [None, 64])

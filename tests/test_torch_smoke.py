@@ -191,6 +191,20 @@ def test_stripe_loads_first_raises_on_a_missing_instance(monkeypatch):
         _stripe_loads(monkeypatch, _stripe_sass(body), ["stripe_xor<k=2>", "stripe_xor<k=3>"])
 
 
+def test_stripe_alu_ops_counts_each_compile_time_instance(monkeypatch):
+    smoke = _smoke()
+    body = ["LDG.E.128 R4, desc[UR4][R20.64]", "IADD3 R22, P0, R20, UR6, RZ",
+            "LDG.E.128 R8, desc[UR4][R22.64]", "LOP3.LUT R12, R4, R8, RZ, 0x96, !PT",
+            "IMAD R1, R1, 0x2, RZ", "STG.E.128 desc[UR4][R24.64], R12", "EXIT"]
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=_stripe_sass(body)))
+    # ALU-pipe instructions only (IMAD runs on the FMA pipe); the runtime and
+    # scalar instances are not read
+    assert smoke.stripe_alu_ops(Path("lib.so")) == {"stripe_xor<k=2>": 2,
+                                                    "stripe_gf256<k=2,m=2>": 1}
+
+
 def test_pcie_peak_rate_is_gen5_x16():
     # 32 GT/s x 16 lanes x 128/130 / 8 bits: ~63.0 GB/s each way
     assert _smoke().PCIE_BYTES_PER_S == pytest.approx(63.015e9, rel=1e-4)
@@ -269,3 +283,63 @@ def test_trace_requests_follow_the_exp10_mix():
     gaps = np.diff([0.0] + [r.t_us for r in reqs])
     assert abs(gaps.mean() - 40.0) < 1.0 and (gaps >= 0).all()
     assert all(0 <= r.lba <= 65_536 - r.n_blocks for r in reqs)
+
+
+# ---------------------------- the block service's and the checkpoints' phases
+
+def test_storage_sim_rehearses_on_the_cpu():
+    smoke = _smoke()
+    ph = smoke.Phase("storage_sim")
+    smoke.storage_sim(ph, device="cpu", n_ops=dict(qds=(1, 4), qd_ops=24, cache_ops=60))
+    info = ph.info
+    assert list(info) == list(smoke.storage_sim_runs())
+    assert all(r["result"] == "equal" for r in info.values())
+    assert info["ckpt_vs_serve_qos"]["restore_ok"] is True
+    # the committed rows of the reference's --quick run (BENCH_PR10.json)
+    assert round(info["ckpt_vs_serve_qos"]["serve_p99_us"], 2) == 235.27
+    assert round(info["ckpt_vs_serve_fifo"]["serve_p99_us"], 2) == 3046.71
+    assert [r["qd"] for r in info["qd_sweep"]["rows"]] == [1, 4]
+
+
+def test_checkpoint_phases_rehearse_on_the_cpu(monkeypatch):
+    """The ``ckpt`` and ``state_parity`` phases at smoke width: every
+    restore and rebuild bit-exact; RAID-6 and m = 2 reach both GF(256)
+    forms, RAID-5 and m = 1 both XOR forms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke as smoke_cfg
+
+    smoke = _smoke()
+    calls = _count_plain_versions(monkeypatch)
+    weights = smoke.mamba2_weights(0, device="cpu", cfg=smoke_cfg(get_config("mamba2-1.3b")))
+    ph = smoke.Phase("ckpt")
+    smoke.ckpt_phase(weights, ph, device="cpu", layers=(2, 1),
+                     geom=dict(zones=16, zone_cap_blocks=256, logical_blocks=4096))
+    for scheme, fail in (("raid5", [1]), ("raid6", [1, 3])):
+        r = ph.info[scheme]
+        assert r["restores"] == "bit-exact" and r["failed_lanes"] == fail
+        assert r["degraded_reads"] > 0 and r["bytes"] > 0 and r["save_mib_s"] > 0
+    assert calls["parity_xor_batch_ref"] and calls["gf256_matmul_batch_ref"]
+    ph = smoke.Phase("state_parity")
+    lanes = smoke.state_parity_phase({k: w.shape for k, w in weights.items()}, 0, ph,
+                                     device="cpu")
+    info = ph.info
+    assert info["params"] == sum(w.numel() for w in weights.values())
+    assert info["state_bytes"] == 8 * info["params"]
+    for m in (1, 2):
+        assert info[f"m{m}"]["rebuilt"] == "bit-exact"
+        assert info[f"m{m}"]["parity_bytes"] == m * info["state_bytes"] // smoke.PARITY["k"]
+    assert info["m2"]["two_lost_wall_ms"] > 0 and "two_lost_wall_ms" not in info["m1"]
+    assert len(lanes) == smoke.PARITY["k"]
+    assert lanes[0].numel() * 4 == info["largest_shard_bytes"]
+    assert calls["parity_xor_ref"] and calls["gf256_matmul_ref"]
+
+
+def test_zero1_shards_pad_and_cut_into_views():
+    import torch
+
+    smoke = _smoke()
+    state = {"a": torch.arange(10.0), "b": torch.arange(8.0).view(2, 4)}
+    shards = smoke.zero1_shards(state, 4)
+    assert [s["a"].tolist() for s in shards] == [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 0, 0]]
+    assert [s["b"].tolist() for s in shards] == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert shards[1]["b"].data_ptr() == state["b"].data_ptr() + 8  # a view, no copy
