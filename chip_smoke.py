@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of ``repro_torch`` on one NVIDIA GPU: ZapRAID's datapath,
-its timed pipeline, Mamba-2 1.3B serving, the block service, and
-erasure-coded checkpoints and optimizer state.
+its timed pipeline, serving every model family (Mamba-2, dense, MoE, VLM,
+the zamba2 hybrid, whisper), the block service, and erasure-coded
+checkpoints and optimizer state.
 
 Run from the root of a checkout, with no arguments::
 
@@ -30,11 +31,13 @@ failing on the first error:
    whole ``encode_np`` / ``decode_np`` round trips at the Zone-Write shapes
    (``ROUND_TRIPS``, 2,000 calls each on the host's clock).  The SSD scan
    against its plain sequential version (tolerance ``SSD_TOL``) at the
-   serving shape in bf16 and f32, with an initial state, at t < chunk, at
-   the CPU tests' shapes, at q = n = p = 128 and on an unaligned view, and
-   its C B^T kernel against its own; their SASS must hold tensor-core
-   instructions; timed beside their bounds (bytes over the memory rate, or
-   FLOPs over the bf16 tensor-core rate);
+   serving shapes of mamba2-1.3b (64 heads, n = 128) and zamba2-2.7b (80
+   heads, n = 64) in bf16 and f32 with and without an initial state, at
+   t < chunk, at the CPU tests' shapes, at q = n = p = 128 and on an
+   unaligned view, and its C B^T kernel against its own; their SASS must
+   hold tensor-core instructions; timed at both serving shapes beside
+   their bounds (bytes over the memory rate, or FLOPs over the bf16
+   tensor-core rate);
 2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
    blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
    Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
@@ -57,15 +60,25 @@ failing on the first error:
    three of the reference's timed scenarios (Exp#10, rebuild under load, a
    degraded RAID-6 replay) on the card and on the CPU and requires every
    virtual-time output, the drive images, L2P and Stats to be equal;
-7. mamba2_serve -- ``mamba2-1.3b`` at full width (48 layers, bf16, random
-   weights from ``SEED``) serves 8 requests of 1,024 prompt tokens and 32
-   generated tokens at batch 4 through ``repro_torch.launch.serve.serve``:
-   prefill and decode tokens/s, peak device memory, finite logits, and 48
-   SSD launches per prefill call; then, in f32 at the same width,
+7. serving, every model family the port serves, at full width with random
+   weights from ``SEED``, through ``repro_torch.launch.serve.serve`` (8
+   requests of 1,024 prompt tokens and 32 generated at batch 4, ``SERVE``):
+   ``mamba2_*`` (mamba2-1.3b, 48 layers), ``dense_*`` (qwen2.5-3b, 36
+   layers) and ``hybrid_*`` (zamba2-2.7b, 54 Mamba-2 layers and a shared
+   attention block applied 9 times) each run ``_setup``, ``_serve``
+   (prefill and decode tokens/s, peak device memory, finite logits; 48 or
+   54 launches of each SSD kernel per prefill call, none for the dense
+   model), ``_profile`` (device time by kernel and the card's idle share of
+   one prefill call and one decode step) and ``_decode_check`` (in f32,
    ``prefill(t)`` plus k ``decode_step``s must give the last logits of
-   ``prefill(t + i)`` at every step (t = 250 pads a ragged chunk, k = 3).
-   Between the two, a profile of one prefill call and one decode step gives
-   device time by kernel and the card's idle share of each;
+   ``prefill(t + i)`` at every step; t = 250 pads a ragged chunk, k = 3).
+   ``moe_serve`` serves one batch of llama4-scout at full width, 2 of its
+   48 layers, and reports the share of routed slots the capacity dropped;
+   ``vlm`` runs paligemma-3b's prefill with a 256-patch stub prefix and 8
+   decode steps, then serves it without one, as the reference does;
+   ``encdec`` runs whisper-small's encoder over 1,500 stub frames, a
+   416-token prefill and 31 decode steps, and ``encdec_decode_check`` its
+   f32 decode check;
 8. storage_sim -- the block service's scenarios at the reference's sizes
    (``STORAGE_SIM``): checkpoint traffic under serving with QoS and with
    FIFO dispatch, a closed-loop read sweep at four queue depths, and
@@ -92,10 +105,11 @@ failing on the first error:
 Each phase prints one JSON line.  The codec kernels' launch counts are
 zeroed just before phase 2 and read just after phase 4 (``launches``), and
 zeroed again just before ``timed`` and read just after ``timed_degraded``
-(``timed_launches``); the SSD scan's are zeroed just before the serving run
-of phase 7 and read just after it; the codec's are zeroed again just before
-phase 8 and read just after phase 10's runs (``ckpt_launches``), before its
-kernels are timed.  The run fails unless each of the four codec kernels
+(``timed_launches``); all of them are zeroed just before each serving run
+of phase 7 and read just after it (``launches`` of the SSD rows for
+mamba2-1.3b, ``hybrid_launches`` for zamba2-2.7b); the codec's are zeroed
+again just before phase 8 and read just after phase 10's runs
+(``ckpt_launches``), before its kernels are timed.  The run fails unless each of the four codec kernels
 launched there.  The ``kernels`` line reports them all.
 The last two lines are the card's name and power limit and the
 ``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
@@ -171,10 +185,20 @@ TIMED = dict(requests=20_000, gap_us=40.0, write_frac=0.85, profile_requests=2_0
 TIMED_DEGRADED = dict(scan_iops=60_000, read_iops=30_000, ops=4_000,
                       rebuild_after_us=50.0)
 
-# Mamba-2 serving (src/repro_torch/configs/mamba2_1_3b.py): requests, batch,
-# prompt and generated tokens; the decode check's prompt t and steps k.
+# Serving at full width (src/repro_torch/configs/): requests, batch, prompt
+# and generated tokens of mamba2-1.3b, qwen2.5-3b, zamba2-2.7b and
+# paligemma-3b; the decode check's prompt t and steps k.
 SERVE = dict(requests=8, batch=4, prompt=1024, gen=32)
 DECODE_CHECK = dict(batch=2, t=250, k=3)
+# llama4-scout's full width (16 experts of 8,192, top-1, a shared expert;
+# 6.47 B parameters in two layers, 12.9 GB of bf16), its depth cut to
+# ``layers`` of 48 to fit one card: one batch served.  paligemma-3b: a
+# prefill with its 256-patch stub prefix, then decode_steps steps.
+# whisper-small: one batch, prompt + gen = 448, the decoder's context in the
+# published model, after the encoder over 1,500 stub frames.
+MOE_SERVE = dict(SERVE, arch="llama4-scout-17b-a16e", layers=2, requests=4)
+VLM = dict(SERVE, arch="paligemma-3b", decode_steps=8)
+ENCDEC = dict(SERVE, arch="whisper-small", requests=4, prompt=416)
 # The SSD kernel multiplies on the tensor cores: bf16 inputs as they are,
 # f32 inputs and the operands it computes in f32 (the masked decay matrix,
 # the state, B scaled by the decay weights) as hi + lo bf16 halves, with
@@ -185,8 +209,8 @@ DECODE_CHECK = dict(batch=2, t=250, k=3)
 # (the kernel's arithmetic emulated in tests/test_torch_ssd.py).
 SSD_TOL = 1e-3
 # prefill + decode vs a longer prefill, in f32 at full width: the two paths
-# sum in different orders through 48 layers (the reference's decode test
-# holds 2e-2 at smoke size, tests/test_models.py).
+# sum in different orders through 24 to 54 layers (the reference's decode
+# test holds 2e-2 at smoke size, tests/test_models.py).
 DECODE_TOL = 2e-2
 
 # The block service's scenarios at the reference's --quick sizes
@@ -404,17 +428,41 @@ def stripe_alu_ops(library: Path) -> dict[str, int]:
     return out
 
 
+# torch.profiler has kept no kernel event at all of a short window on the
+# H100's machine (a two-call window of a plain version, late in the run):
+# an empty window is profiled again, up to this many times in all.
+PROFILE_WINDOWS = 3
+
+
+def _profiled_device_us(run) -> float:
+    """The summed device time (µs) of the GPU kernels and memsets that
+    ``run()`` queues, from ``torch.profiler``; an empty window is profiled
+    again (``PROFILE_WINDOWS``), noted on stderr; raises if none holds any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if dev_us > 0:
+            return dev_us
+        print(f"chip_smoke: profiler window {window + 1} of {PROFILE_WINDOWS} held no "
+              "device time", file=sys.stderr, flush=True)
+    raise RuntimeError("torch.profiler recorded no device time for the timed calls")
+
+
 def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
     """(device ms, call ms) per call, over ``iters`` calls cycling through
     ``args_list`` (distinct copies whose total exceeds the 50 MB L2, so
     inputs come from device memory).
 
     Device ms is the summed time of the GPU kernels (and memsets) the calls
-    ran, from ``torch.profiler``; it raises if the profile holds none.  Call
-    ms is CUDA-event time from the first call to the last, which includes
-    the host's launch overhead whenever the host cannot keep the card busy."""
+    ran, from ``torch.profiler`` (``_profiled_device_us``).  Call ms is
+    CUDA-event time from the first call to the last, which includes the
+    host's launch overhead whenever the host cannot keep the card busy."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def run():
         for i in range(iters):
@@ -430,13 +478,7 @@ def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if dev_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time for the timed calls")
-    return dev_us / 1e3 / iters, call_ms
+    return _profiled_device_us(run) / 1e3 / iters, call_ms
 
 
 def _time_host_ms(fn, iters: int) -> tuple[float, float]:
@@ -444,23 +486,18 @@ def _time_host_ms(fn, iters: int) -> tuple[float, float]:
     its result is in host memory: device ms is the kernel's time from
     ``torch.profiler`` (the link's crossings included); call ms is host-clock
     time per call, launch to return."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(20):
         fn()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
     call_ms = 1e3 * (time.perf_counter() - t0) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if dev_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time for the timed calls")
-    return dev_us / 1e3 / iters, call_ms
+
+    return _profiled_device_us(run) / 1e3 / iters, call_ms
 
 
 def link_rates() -> dict:
@@ -908,8 +945,9 @@ def tensor_core_instructions(library: Path) -> dict[str, int]:
 
 def ssd_checks() -> list[dict]:
     """Hold the SSD kernels against their plain versions on the card; time
-    both at the serving shape.  Returns the ``ssd_scan`` and
-    ``ssd_chunk_gram`` rows."""
+    both at mamba2-1.3b's serving shape, and at zamba2-2.7b's
+    (``hybrid_shape``).  Returns the ``ssd_scan`` and ``ssd_chunk_gram``
+    rows."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -923,6 +961,10 @@ def ssd_checks() -> list[dict]:
     nb, t = SERVE["batch"], SERVE["prompt"]
     nh, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
     chunk = cfg.ssm_chunk
+    hyb = get_config("zamba2-2.7b")  # the hybrid's: 80 heads of P=64, N=64
+    zh, zp, zn = hyb.ssm_nheads, hyb.ssm_head_dim, hyb.ssm_state
+    if hyb.ssm_chunk != chunk:
+        raise AssertionError("the two serving shapes share one chunk length")
 
     def heads(dtype, nb, t, nh, p, n, h0=False, skew=0):
         """Operands as ``mamba_apply`` gives them: x, b, c strided views of
@@ -960,9 +1002,12 @@ def ssd_checks() -> list[dict]:
         ("q=n=p=128 f32", heads(f32, 2, 256, 4, 128, 128), 128),
         # views off a 16-byte boundary take the scalar load path
         ("unaligned bf16 h0", heads(bf16, 2, 256, 8, p, n, h0=True, skew=1), chunk),
+    ] + [  # zamba2-2.7b's prefill scan at the serving shape: n = 64, 640 blocks
+        (f"zamba2 {dt_}{' h0' if h0 else ''}", heads(d, nb, t, zh, zp, zn, h0=h0), chunk)
+        for dt_, d in (("bf16", bf16), ("f32", f32)) for h0 in (False, True)
     ]
     cont = rows(f32, 2, 128, 4, 8)  # state continuation (tests/test_kernels.py)
-    max_err, worst = 0.0, None
+    max_err, worst, hyb_err = 0.0, None, 0.0
     for label, args, ch in cases:
         got, want = ssd.ssd_scan(*args, chunk=ch), ssd.ssd_scan_plain(*args)
         for g, w in zip(got, want):
@@ -972,6 +1017,8 @@ def ssd_checks() -> list[dict]:
                                      f"version (max abs err {err})")
             if err > max_err:
                 max_err, worst = err, label
+            if label.startswith("zamba2"):
+                hyb_err = max(hyb_err, err)
     x, dt, a, b, c, _ = cont
     y_full, h_full = ssd.ssd_scan(x, dt, a, b, c, chunk=32)
     y1, h1 = ssd.ssd_scan(x[:, :64], dt[:, :64], a, b[:, :64], c[:, :64], chunk=32)
@@ -990,57 +1037,75 @@ def ssd_checks() -> list[dict]:
                                  f"version (max abs err {err})")
         gram_err = max(gram_err, err)
 
-    main = cases[0][1]
-    nbytes = ssd_bytes(main)
-    copies = [main] + [heads(bf16, nb, t, nh, p, n) for _ in range(max(1, (96 << 20) // nbytes))]
-    ms, call_ms = _time_ms(lambda *a_: ssd.ssd_scan(*a_, chunk=chunk), copies, 20)
-    plain_ms, plain_call_ms = _time_ms(ssd.ssd_scan_plain, copies, 3)
-    flops = ssd_flops(nb, nh, t, chunk, n, p)
-    tensor_flops = ssd_tensor_flops(nb, nh, t, chunk, n, p)
-    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+    def timing(nh, p, n):
+        """Both kernels timed at (nb, t) with nh heads of p and state n, in
+        bf16, beside their plain versions, bounds and (for G) the library
+        call: (scan numbers, G numbers)."""
+        main = heads(bf16, nb, t, nh, p, n)
+        nbytes = ssd_bytes(main)
+        copies = [main] + [heads(bf16, nb, t, nh, p, n)
+                           for _ in range(max(1, (96 << 20) // nbytes))]
+        ms, call_ms = _time_ms(lambda *a_: ssd.ssd_scan(*a_, chunk=chunk), copies, 20)
+        plain_ms, plain_call_ms = _time_ms(ssd.ssd_scan_plain, copies, 3)
+        flops = ssd_flops(nb, nh, t, chunk, n, p)
+        tensor_flops = ssd_tensor_flops(nb, nh, t, chunk, n, p)
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+        scan = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "shape": [list(v.shape) if v is not None else None for v in main],
+            "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms, "flops": flops,
+            "bytes": nbytes, "bound_share": max(byte_ms, op_ms) / ms,
+            # what the two kernels issue on the tensor cores (split halves and
+            # padding included), its time at the dense bf16 rate, and its rate
+            "tensor_flops": tensor_flops,
+            "tensor_us": 1e6 * tensor_flops / BF16_TENSOR_FLOP_PER_S,
+            "tensor_flop_per_s": tensor_flops / (ms * 1e-3),
+        }
+        del copies
+
+        # G alone: b, c in, the tiles out; the library call is one batched
+        # matmul of the chunks (the whole q x q block, bf16 out).
+        def gram_args():
+            return heads(bf16, nb, t, 1, p, n)[3:5]
+
+        gb, gc_ = gram_args()
+        gram = ssd.chunk_gram(gb, gc_, chunk=chunk)
+        g_bytes = 2 * gb.numel() * gb.element_size() + 4 * gram.numel()
+        g_flops = (t // chunk) * nb * chunk * (chunk + 1) * n
+        gcopies = [(gb, gc_)] + [gram_args() for _ in range(max(1, (96 << 20) // g_bytes))]
+        g_ms, g_call_ms = _time_ms(lambda b_, c_: ssd.chunk_gram(b_, c_, chunk=chunk),
+                                   gcopies, 50)
+        g_plain_ms, _ = _time_ms(lambda b_, c_: ref.ssd_chunk_gram_ref(b_, c_, chunk),
+                                 gcopies, 10)
+        lib_ms, _ = _time_ms(lambda b_, c_: torch.matmul(
+            c_.unflatten(1, (-1, chunk)), b_.unflatten(1, (-1, chunk)).transpose(-1, -2)),
+            gcopies, 50)
+        g_byte_ms = 1e3 * g_bytes / HBM_BYTES_PER_S
+        g_op_ms = 1e3 * g_flops / BF16_TENSOR_FLOP_PER_S
+        gram_t = {
+            "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": max(g_byte_ms, g_op_ms),
+            "bound_by": "bytes" if g_byte_ms >= g_op_ms else "operations",
+            "library_ms": lib_ms, "call_ms": g_call_ms, "shape": [list(gb.shape), list(gc_.shape)],
+            "bytes_us": 1e3 * g_byte_ms, "ops_us": 1e3 * g_op_ms,
+        }
+        return scan, gram_t
+
+    scan_main, gram_main = timing(nh, p, n)
+    scan_hyb, gram_hyb = timing(zh, zp, zn)
     scan_row = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:90", "launches": 0, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
-        "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-        "shape": [list(v.shape) if v is not None else None for v in main],
-        "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms, "flops": flops, "bytes": nbytes,
-        "bound_share": max(byte_ms, op_ms) / ms,
-        # what the two kernels issue on the tensor cores (split halves and
-        # padding included), its time at the dense bf16 rate, and its rate
-        "tensor_flops": tensor_flops,
-        "tensor_us": 1e6 * tensor_flops / BF16_TENSOR_FLOP_PER_S,
-        "tensor_flop_per_s": tensor_flops / (ms * 1e-3),
-        "cases": len(cases) + 1, "worst_case": worst, "tol": SSD_TOL,
+        **scan_main, "cases": len(cases) + 1, "worst_case": worst, "tol": SSD_TOL,
+        "hybrid_shape": {**scan_hyb, "max_abs_err": hyb_err},
     }
-
-    # G alone at the serving shape: b, c in, the tiles out; the library call
-    # is one batched matmul of the chunks (the whole q x q block, bf16 out).
-    def gram_args():
-        return heads(bf16, nb, t, 1, p, n)[3:5]
-
-    gb, gc = gram_args()
-    gram = ssd.chunk_gram(gb, gc, chunk=chunk)
-    g_bytes = 2 * gb.numel() * gb.element_size() + 4 * gram.numel()
-    g_flops = (t // chunk) * nb * chunk * (chunk + 1) * n
-    gcopies = [(gb, gc)] + [gram_args() for _ in range(max(1, (96 << 20) // g_bytes))]
-    g_ms, g_call_ms = _time_ms(lambda b_, c_: ssd.chunk_gram(b_, c_, chunk=chunk), gcopies, 50)
-    g_plain_ms, _ = _time_ms(lambda b_, c_: ref.ssd_chunk_gram_ref(b_, c_, chunk), gcopies, 10)
-    lib_ms, _ = _time_ms(lambda b_, c_: torch.matmul(c_.unflatten(1, (-1, chunk)),
-                                                      b_.unflatten(1, (-1, chunk)).transpose(-1, -2)),
-                         gcopies, 50)
-    g_byte_ms = 1e3 * g_bytes / HBM_BYTES_PER_S
-    g_op_ms = 1e3 * g_flops / BF16_TENSOR_FLOP_PER_S
     gram_row = {
         "name": "ssd_chunk_gram", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:52", "launches": 0, "max_abs_err": gram_err,
-        "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": max(g_byte_ms, g_op_ms),
-        "bound_by": "bytes" if g_byte_ms >= g_op_ms else "operations", "library_ms": lib_ms,
-        "call_ms": g_call_ms, "shape": [list(gb.shape), list(gc.shape)],
-        "bytes_us": 1e3 * g_byte_ms, "ops_us": 1e3 * g_op_ms, "cases": len(cases),
+        **gram_main, "cases": len(cases), "hybrid_shape": gram_hyb,
     }
     return [scan_row, gram_row]
 
@@ -1473,83 +1538,134 @@ def timed_card_vs_cpu(seed: int, device: str = "cuda") -> dict:
 
 # ------------------------------------------------------ phase 7: serving
 
-def mamba2_model(seed: int, ph: Phase):
-    """``mamba2-1.3b`` at full width on the card, random weights from
-    ``seed``, warmed up (cuBLAS plans, the caching allocator) by one short
-    serving run."""
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def model_config(arch: str, shrink=None, **overrides):
+    """``arch``'s configuration at full width; ``shrink`` (e.g. ``smoke``,
+    for a rehearsal on the CPU) cuts it, ``overrides`` replace fields."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cfg = shrink(cfg) if shrink else cfg
+    return dataclasses.replace(cfg, **overrides)
+
+
+def stub_inputs(cfg, rng, batch: int, device) -> dict:
+    """What a family's prefill takes beside the tokens, from ``rng``: a
+    VLM's patch embeddings (batch, vis_prefix_len, vis_embed_dim), an
+    encoder-decoder's frame embeddings (batch, enc_len, d_model); N(0, 0.1)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+
+    if cfg.family == "vlm":
+        name, shape = "vis_embeds", (batch, cfg.vis_prefix_len, cfg.vis_embed_dim)
+    elif cfg.family == "encdec":
+        name, shape = "frames", (batch, cfg.enc_len, cfg.d_model)
+    else:
+        return {}
+    return {name: torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32))
+            .to(device)}
+
+
+def model_setup(arch: str, seed: int, ph: Phase, device: str = "cuda", shrink=None,
+                sizes: dict = SERVE, **overrides):
+    """``arch`` on ``device``, random weights from ``seed``, warmed up
+    (cuBLAS plans, the caching allocator) by one short serving run of
+    ``sizes``' batch and prompt length -- for an encoder-decoder, which
+    cannot be served from tokens, a prefill with stub frames and a decode
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import grow_cache, serve
     from repro_torch.models.model import build_model
 
-    cfg = get_config("mamba2-1.3b")
+    cfg = model_config(arch, shrink, **overrides)
     t = time.perf_counter()
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(seed))
-    torch.cuda.synchronize()
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed))
+    _sync(device)
     ph.info["init_s"] = time.perf_counter() - t
     rng = np.random.default_rng(seed + 1)
-    warm = [rng.integers(0, cfg.vocab, (SERVE["prompt"],)) for _ in range(SERVE["batch"])]
-    serve(model, warm, batch=SERVE["batch"], gen_len=2)
-    ph.info.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-                    "params": sum(w.numel() for w in model.parameters())})
+    warm = [rng.integers(0, cfg.vocab, (sizes["prompt"],)) for _ in range(sizes["batch"])]
+    if cfg.family == "encdec":
+        toks = torch.from_numpy(np.stack(warm)).to(device)
+        _, cache = model.prefill(toks, **stub_inputs(cfg, rng, sizes["batch"], device))
+        model.decode_step(grow_cache(cache, 1), toks[:, -1:])
+    else:
+        serve(model, warm, batch=sizes["batch"], gen_len=2)
+    ph.info.update({"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+                    "dtype": cfg.dtype, "params": sum(w.numel() for w in model.parameters())})
     return model
 
 
-def mamba2_serve(model, seed: int, ph: Phase):
-    """Serve ``SERVE`` through the port's serve loop; check the logits are
+def serve_phase(model, seed: int, ph: Phase, sizes: dict = SERVE):
+    """Serve ``sizes`` through the port's serve loop; check the logits are
     finite and of the right shape and the tokens in range.  Returns the
     serving stats."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import greedy, serve
 
-    vocab = model.cfg.vocab
+    vocab, dev = model.cfg.vocab, model.device
     rng = np.random.default_rng(seed)
-    queue = [rng.integers(0, vocab, (SERVE["prompt"],)) for _ in range(SERVE["requests"])]
+    queue = [rng.integers(0, vocab, (sizes["prompt"],)) for _ in range(sizes["requests"])]
     finite = []
 
     def choose(logits):
-        if logits.shape != (SERVE["batch"], 1, vocab):
+        if logits.shape != (sizes["batch"], 1, vocab):
             raise AssertionError(f"logits of shape {tuple(logits.shape)}")
         finite.append(torch.isfinite(logits).all())
         return greedy(logits)
 
-    torch.cuda.reset_peak_memory_stats()
-    st = serve(model, queue, batch=SERVE["batch"], gen_len=SERVE["gen"], choose=choose)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    st = serve(model, queue, batch=sizes["batch"], gen_len=sizes["gen"], choose=choose)
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits while serving")
     outs = np.stack(st.outputs)
-    if outs.shape != (SERVE["requests"], SERVE["gen"]) or outs.min() < 0 or outs.max() >= vocab:
+    if outs.shape != (sizes["requests"], sizes["gen"]) or outs.min() < 0 or outs.max() >= vocab:
         raise AssertionError(f"generated tokens of shape {outs.shape} out of range")
     ph.info.update({
-        **SERVE, "requests_served": st.requests, "prefill_calls": st.prefill_calls,
+        **sizes, "requests_served": st.requests, "prefill_calls": st.prefill_calls,
         "prefill_tokens": st.prefill_tokens, "decode_tokens": st.decode_tokens,
         "prefill_s": st.prefill_s, "decode_s": st.decode_s,
         "prefill_tok_s": st.prefill_tok_s, "decode_tok_s": st.decode_tok_s,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
     })
     return st
 
 
-def serve_profile(model, seed: int, ph: Phase) -> None:
+def serve_profile(model, seed: int, ph: Phase, sizes: dict = SERVE) -> None:
     """Device time by kernel (``torch.profiler``) over one prefill call and
     one decode step at the serving shape, against the wall time of each;
-    the difference is the share of the call the card sat idle."""
+    the difference is the share of the call the card sat idle.  A model on
+    the CPU (a rehearsal) records the wall times only."""
     import numpy as np
     import torch
+    from repro_torch.launch.serve import grow_cache
     from torch.profiler import ProfilerActivity, profile
 
+    dev = model.device
     rng = np.random.default_rng(seed + 2)
-    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (SERVE["batch"], SERVE["prompt"])))
-    toks = toks.cuda()
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (sizes["batch"], sizes["prompt"])))
+    toks = toks.to(dev)
     _, cache = model.prefill(toks)
+    grow_cache(cache, 2)  # room for the warm-up step and the profiled one
     nxt = toks[:, -1:]
     for name, call in (("prefill", lambda: model.prefill(toks)),
                        ("decode_step", lambda: model.decode_step(cache, nxt))):
         call()  # warm
-        torch.cuda.synchronize()
+        _sync(dev)
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            call()
+            ph.info[name] = {"wall_ms": 1e3 * (time.perf_counter() - t0)}
+            continue
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             call()
@@ -1565,35 +1681,185 @@ def serve_profile(model, seed: int, ph: Phase) -> None:
         }
 
 
-def decode_matches_prefill(seed: int, ph: Phase) -> None:
+def decode_matches_prefill(arch: str, seed: int, ph: Phase, device: str = "cuda",
+                           shrink=None, sizes: dict = DECODE_CHECK) -> None:
     """In f32 at full width: prefill(t) then k decode steps against
-    prefill(t + i) for each step i."""
-    import dataclasses as dc
-
+    prefill(t + i) for each step i (an encoder-decoder with the same stub
+    frames on both sides)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import grow_cache
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dc.replace(get_config("mamba2-1.3b"), dtype="float32")
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(seed))
-    b, t, k = DECODE_CHECK["batch"], DECODE_CHECK["t"], DECODE_CHECK["k"]
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (b, t + k))).cuda()
-    logits, cache = model.prefill(toks[:, :t])
+    cfg = model_config(arch, shrink, dtype="float32")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed))
+    b, t, k = sizes["batch"], sizes["t"], sizes["k"]
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, t + k))).to(device)
+    kw = stub_inputs(cfg, rng, b, device)
+    logits, cache = model.prefill(toks[:, :t], **kw)
+    grow_cache(cache, k)
     errs = []
     for i in range(k):
         logits, cache = model.decode_step(cache, toks[:, t + i : t + i + 1])
-        want, _ = model.prefill(toks[:, : t + i + 1])
+        want, _ = model.prefill(toks[:, : t + i + 1], **kw)
         errs.append(float((logits - want).abs().max()))
         if not (torch.isfinite(logits).all()
                 and torch.allclose(logits, want, atol=DECODE_TOL, rtol=DECODE_TOL)):
-            raise AssertionError(f"decode step {i} differs from prefill({t + i + 1}): "
+            raise AssertionError(f"{arch}: decode step {i} differs from prefill({t + i + 1}): "
                                  f"max abs err {errs[-1]}")
-    ph.info.update({"dtype": cfg.dtype, "batch": b, "t": t, "k": k, "tol": DECODE_TOL,
-                    "max_abs_err": errs, "logit_abs_max": float(want.abs().max())})
+    ph.info.update({"arch": arch, "dtype": cfg.dtype, "batch": b, "t": t, "k": k,
+                    "tol": DECODE_TOL, "max_abs_err": errs,
+                    "logit_abs_max": float(want.abs().max())})
+
+
+SSD_KERNELS = ("ssd_scan", "ssd_chunk_gram")
+
+
+def serving_path(tag: str, arch: str, seed: int) -> dict:
+    """Phases ``<tag>_setup``, ``<tag>_serve``, ``<tag>_profile`` and
+    ``<tag>_decode_check`` of ``arch`` at full width on the card.  The
+    launch counts are zeroed just before the serving run and read just
+    after it: a Mamba-2 family must have launched each SSD kernel once per
+    layer and prefill call, every other family none; returns them."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    with Phase(f"{tag}_setup") as ph:
+        model = model_setup(arch, seed, ph)
+    reset_launch_counts()  # this serving path's launches start here
+    with Phase(f"{tag}_serve") as ph:
+        st = serve_phase(model, seed, ph)
+    counts = launch_counts()  # read just after it
+    ssm = model.cfg.family in ("ssm", "hybrid")
+    want = model.cfg.n_layers * st.prefill_calls if ssm else 0
+    for name, n in counts.items():
+        if n != (want if name in SSD_KERNELS else 0) or (ssm and want == 0):
+            raise AssertionError(f"{arch}: {name} launched {n} times while serving, want "
+                                 f"{want if name in SSD_KERNELS else 0}: {counts}")
+    with Phase(f"{tag}_profile") as ph:
+        serve_profile(model, seed, ph)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase(f"{tag}_decode_check") as ph:
+        decode_matches_prefill(arch, seed, ph)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_serve(seed: int, ph: Phase, device: str = "cuda", shrink=None,
+              sizes: dict = MOE_SERVE) -> None:
+    """llama4-scout at full width, its first ``layers`` layers: one batch of
+    ``sizes`` served, finite logits; the share of routed slots the capacity
+    dropped, over the prefill calls and over the decode steps (counted by
+    wrapping ``layers.moe_dispatch``, on the device, read once at the end)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    model = model_setup(sizes["arch"], seed, ph, device, shrink, sizes=sizes,
+                        n_layers=sizes["layers"])
+    ph.info["reduced"] = f"{sizes['layers']} of {model_config(sizes['arch'], shrink).n_layers} layers"
+    kept = {"prefill": [], "decode": []}
+    real = L.moe_dispatch
+
+    def counted(router, x, cfg):
+        dsp = real(router, x, cfg)
+        kept["prefill" if x.shape[1] > 1 else "decode"].append((dsp.keep.numel(), dsp.keep.sum()))
+        return dsp
+
+    L.moe_dispatch = counted
+    try:
+        serve_phase(model, seed, ph, sizes)
+    finally:
+        L.moe_dispatch = real
+    for what, calls in kept.items():
+        routed = sum(n for n, _ in calls)
+        n_kept = int(torch.stack([k for _, k in calls]).sum()) if calls else 0
+        ph.info[f"{what}_routed_slots"] = routed
+        ph.info[f"{what}_dropped_share"] = 1 - n_kept / routed if routed else None
+    ph.info["capacity_factor"] = model.cfg.capacity_factor
+
+
+def vlm_phase(seed: int, ph: Phase, device: str = "cuda", shrink=None,
+              sizes: dict = VLM) -> None:
+    """paligemma-3b at full width: one prefill of ``sizes``' batch with the
+    stub vision prefix, then ``decode_steps`` greedy steps, finite logits;
+    then served as the reference serves it, without a prefix."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import greedy, grow_cache
+
+    model = model_setup(sizes["arch"], seed, ph, device, shrink, sizes=sizes)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 3)
+    b, steps = sizes["batch"], sizes["decode_steps"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, sizes["prompt"]))).to(device)
+    kw = stub_inputs(cfg, rng, b, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, **kw)
+    _sync(device)
+    t1 = time.perf_counter()
+    grow_cache(cache, steps)
+    finite = [torch.isfinite(logits).all()]
+    for _ in range(steps):
+        logits, cache = model.decode_step(cache, greedy(logits))
+        finite.append(torch.isfinite(logits).all())
+    _sync(device)
+    t2 = time.perf_counter()
+    if not bool(torch.stack(finite).all()) or logits.shape != (b, 1, cfg.vocab):
+        raise AssertionError("paligemma with a vision prefix: non-finite or misshapen logits")
+    if cache["len"] != cfg.vis_prefix_len + sizes["prompt"] + steps:
+        raise AssertionError(f"cache len {cache['len']} does not count the prefix")
+    del cache
+    ph.info["with_prefix"] = {
+        "vis_embeds": list(kw["vis_embeds"].shape), "prefill_s": t1 - t0,
+        "prefill_tok_s": b * (cfg.vis_prefix_len + sizes["prompt"]) / (t1 - t0),
+        "decode_steps": steps, "decode_tok_s": b * steps / (t2 - t1)}
+    serve_phase(model, seed, ph, sizes)
+
+
+def encdec_phase(seed: int, ph: Phase, device: str = "cuda", shrink=None,
+                 sizes: dict = ENCDEC) -> None:
+    """whisper-small at full width: prefill ``sizes``' batch of prompts with
+    stub frames (batch, enc_len, d_model), then ``gen - 1`` greedy decode
+    steps; finite logits, tokens/s, peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import greedy, grow_cache
+
+    model = model_setup(sizes["arch"], seed, ph, device, shrink, sizes=sizes)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 4)
+    b = sizes["batch"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, sizes["prompt"]))).to(device)
+    kw = stub_inputs(cfg, rng, b, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, **kw)
+    _sync(device)
+    t1 = time.perf_counter()
+    grow_cache(cache, sizes["gen"])
+    finite = [torch.isfinite(logits).all()]
+    for _ in range(sizes["gen"] - 1):
+        logits, cache = model.decode_step(cache, greedy(logits))
+        finite.append(torch.isfinite(logits).all())
+    _sync(device)
+    t2 = time.perf_counter()
+    if not bool(torch.stack(finite).all()) or logits.shape != (b, 1, cfg.vocab):
+        raise AssertionError("whisper: non-finite or misshapen logits")
+    ph.info.update({
+        **sizes, "frames": list(kw["frames"].shape), "prefill_s": t1 - t0,
+        "prefill_tok_s": b * sizes["prompt"] / (t1 - t0), "decode_steps": sizes["gen"] - 1,
+        "decode_tok_s": b * (sizes["gen"] - 1) / (t2 - t1),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None})
 
 
 # ------------------------------- phases 8-10: block service, checkpoints, state parity
@@ -1670,7 +1936,7 @@ def _tree_bits_equal(got: dict, want: dict) -> bool:
 def mamba2_weights(seed: int, device: str = "cuda", cfg=None):
     """``mamba2-1.3b``'s parameters, built by the port's ``build_model`` on
     ``device`` from ``seed``: {name: tensor} (the layer leaves stacked over
-    layers, ``block.w_z`` of (48, 2048, 4096) and so on)."""
+    layers, ``layers.block.w_z`` of (48, 2048, 4096) and so on)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -1691,7 +1957,7 @@ def ckpt_round_trip(weights: dict, scheme: str, layers: int, fail: tuple[int, ..
     import torch
     from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
 
-    state = {k: w[:layers] for k, w in weights.items() if k.startswith("block.") or k == "ln"}
+    state = {k: w[:layers] for k, w in weights.items() if k.startswith("layers.")}
     nbytes = sum(w.numel() * w.element_size() for w in state.values())
     n_lanes = {"raid5": 4, "raid6": 5}[scheme]
     cfg = CheckpointConfig(n_lanes=n_lanes, scheme=scheme, block_bytes=BLOCK_BYTES,
@@ -2041,24 +2307,16 @@ def main() -> int:
         ph.info["result"] = timed_card_vs_cpu(SEED)
     gc.collect()
 
-    with Phase("mamba2_setup") as ph:
-        model = mamba2_model(SEED, ph)
-    reset_launch_counts()  # the serving path's launches start here
-    with Phase("mamba2_serve") as ph:
-        st = mamba2_serve(model, SEED, ph)
-    serving = launch_counts()  # read just after the serving path
-    want = model.cfg.n_layers * st.prefill_calls
-    for name in ("ssd_scan", "ssd_chunk_gram"):
-        if serving[name] != want or want == 0:
-            raise AssertionError(f"{name} launched {serving[name]} times while serving, "
-                                 f"want {model.cfg.n_layers} per prefill call ({want})")
-    with Phase("mamba2_profile") as ph:
-        serve_profile(model, SEED, ph)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    with Phase("mamba2_decode_check") as ph:
-        decode_matches_prefill(SEED, ph)
+    serving = {tag: serving_path(tag, arch, SEED)
+               for tag, arch in (("mamba2", "mamba2-1.3b"), ("dense", "qwen2.5-3b"),
+                                 ("hybrid", "zamba2-2.7b"))}
+    for name, fn in (("moe_serve", moe_serve), ("vlm", vlm_phase), ("encdec", encdec_phase)):
+        with Phase(name) as ph:
+            fn(SEED, ph)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase("encdec_decode_check") as ph:
+        decode_matches_prefill(ENCDEC["arch"], SEED, ph)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2089,14 +2347,15 @@ def main() -> int:
     for r in rows:
         r["launches"] = main_path[r["name"]]
     for r in ssd_rows:
-        r["launches"] = serving[r["name"]]
+        r["launches"] = serving["mamba2"][r["name"]]
     rows += ssd_rows
     for r in rows:
         r["timed_launches"] = timed_path[r["name"]]
         r["ckpt_launches"] = ckpt_path[r["name"]]
+        r["hybrid_launches"] = serving["hybrid"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_launches",
-            "ckpt_launches")
+            "ckpt_launches", "hybrid_launches")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

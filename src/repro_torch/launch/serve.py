@@ -9,10 +9,18 @@ call, decodes ``gen_len - 1`` more tokens step by step, and moves on to the
 next batch until the queue is empty.  It reports prefill and decode tokens
 and the time each phase took.
 
+After prefill the KV caches (``k``, ``v``, and the hybrid's ``ak``, ``av``)
+grow by ``gen_len`` positions along the sequence axis, as the reference's
+loop pads them (:func:`grow_cache`); decode then writes into them in place.
+A VLM is served without a vision prefix, as the reference serves it.  An
+encoder-decoder cannot be served from tokens alone (its prefill needs frame
+embeddings; the reference's loop fails there too): :func:`serve` raises
+``ValueError`` for it.
+
 The model is randomly initialised from ``--seed``; no weights are loaded.
 ``--smoke/--no-smoke`` picks the smoke-size or the full configuration (the
 reference's ``--smoke`` cannot be turned off).  The default architecture is
-``mamba2-1.3b``, the one family the port runs.
+the reference's, ``qwen2.5-3b``.
 
 With ``--storage-sim`` the token loop is replaced by the storage-side view of
 the same cell (:func:`run_storage_sim`): ``--jobs`` simulated training jobs
@@ -69,6 +77,23 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits[:, -1].argmax(-1, keepdim=True)
 
 
+KV_CACHES = ("k", "v", "ak", "av")
+
+
+def grow_cache(cache: dict, extra: int) -> dict:
+    """Give each KV cache of ``cache`` ``extra`` more positions along its
+    sequence axis (axis 2), zeroed, the prefix copied in: the reference's
+    ``jnp.pad`` of the same caches, as one allocation that decode then
+    writes into in place."""
+    for key in KV_CACHES:
+        if key in cache:
+            old = cache[key]
+            new = old.new_zeros((*old.shape[:2], old.shape[2] + extra, *old.shape[3:]))
+            new[:, :, : old.shape[2]] = old
+            cache[key] = new
+    return cache
+
+
 def serve(model, queue: Sequence[np.ndarray], *, batch: int, gen_len: int,
           choose: Callable[[torch.Tensor], torch.Tensor] = greedy) -> ServeStats:
     """Serve every prompt of ``queue`` (1-d token arrays of one length).
@@ -76,6 +101,9 @@ def serve(model, queue: Sequence[np.ndarray], *, batch: int, gen_len: int,
     ``choose`` maps each step's logits (B,1,V) to the next tokens (B,1);
     greedy by default (a test may force the tokens).  Phase times end in a
     device synchronisation, so they hold the device's work."""
+    if model.cfg.family == "encdec":
+        raise ValueError(f"{model.cfg.name}: an encoder-decoder cannot be served from tokens "
+                         "alone; its prefill needs frame embeddings")
     dev = model.device
     pending = list(queue)
     st = ServeStats()
@@ -91,6 +119,7 @@ def serve(model, queue: Sequence[np.ndarray], *, batch: int, gen_len: int,
         sync()
         t0 = time.perf_counter()
         logits, cache = model.prefill(tokens)
+        grow_cache(cache, gen_len)
         sync()
         t1 = time.perf_counter()
         st.prefill_s += t1 - t0
@@ -146,7 +175,7 @@ def run_storage_sim(args) -> dict:
 
 def run(argv=None) -> ServeStats | dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

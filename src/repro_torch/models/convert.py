@@ -1,23 +1,26 @@
-"""Carry the JAX package's ``MambaLM`` parameters into the port's.
+"""Carry the JAX package's model parameters into the port's, for every family.
 
-The reference's ``MambaLM.init`` tree, turned into numpy leaves, is::
+The reference's ``init`` tree, turned into numpy leaves, is a nested dict::
 
-    {"embed": (V, D), "lm_head": (D, V), "final_norm": (D,),
-     "layers": {"block": {"w_z": (L, D, Di), ...}, "ln": (L, D)}}
+    {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
+     "layers": {"attn": {"wq": (L, D, H*HD), ...}, "mlp": {...}, "ln1": (L, D), ...}}
 
-Each leaf is copied into the port parameter of the same name and shape.
-Weights keep the reference's (in, out) layout -- the port computes
+(``layers/block`` and ``shared`` for the Mamba-2 families, ``enc_layers`` /
+``dec_layers`` for the encoder-decoder).  Each leaf is copied into the port
+parameter of the same path (``layers/attn/wq`` is ``layers.attn.wq``) and
+shape.  Weights keep the reference's (in, out) layout -- the port computes
 ``x @ w`` where the reference writes ``einsum("btd,de->bte", x, w)`` -- so
 nothing is transposed.  Leaves pass through float32 on the way, which is
-exact for bf16 and f32 weights.  This module takes numpy only; the tests
-produce the tree from the JAX package.
+exact for bf16 and f32 weights, and land in the port parameter's dtype
+(the MoE router stays float32 in a bf16 model, as the reference's does).
+This module takes numpy only; the tests produce the tree from the JAX
+package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from repro_torch.models.model import MambaLM
+from torch import nn
 
 
 def _flatten(tree, prefix=""):
@@ -31,21 +34,18 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def mamba_param_names(model: MambaLM) -> dict[str, torch.nn.Parameter]:
+def param_names(model: nn.Module) -> dict[str, nn.Parameter]:
     """The port's parameters under the reference's tree paths."""
-    names = {"embed": model.embed, "lm_head": model.lm_head,
-             "final_norm": model.final_norm, "layers/ln": model.ln}
-    names.update({f"layers/block/{k}": w for k, w in model.block.items()})
-    return names
+    return {name.replace(".", "/"): p for name, p in model.named_parameters()}
 
 
-def load_jax_params(model: MambaLM, tree: dict) -> MambaLM:
+def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
     """Copy the reference's parameter tree (numpy leaves) into ``model``.
 
     Every leaf must have a port parameter of the same path and shape, and
     every port parameter a leaf; anything else raises."""
     flat = _flatten(tree)
-    params = mamba_param_names(model)
+    params = param_names(model)
     if set(flat) != set(params):
         raise KeyError(f"parameter trees differ: only in the reference "
                        f"{sorted(set(flat) - set(params))}, only in the port "

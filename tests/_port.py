@@ -249,3 +249,109 @@ def assert_same_timed(pa, pb):
     for da, db in zip(pa.array.drives, pb.array.drives, strict=True):
         assert_same_timing(da, db)
     assert_same_state(pa.array, pb.array)
+
+
+# ------------------------------------------------------------------ models
+
+def to_torch(tree):
+    """A tree of jax/numpy leaves as torch tensors of the same dtype (bf16
+    through float32, which is exact)."""
+    import torch
+
+    def one(leaf):
+        arr = np.asarray(leaf)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(arr))
+
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    return one(tree)
+
+
+def model_pair(arch, **overrides):
+    """(jax cfg, jax model, jax params, port model) of ``smoke(arch)`` with
+    ``overrides`` on both sides: the reference's ``init(PRNGKey(0))`` tree
+    carried into the port's model on the CPU by ``load_jax_params``."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.models.config import smoke as j_smoke
+    from repro.models.model import build_model as j_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke
+    from repro_torch.models.convert import load_jax_params
+    from repro_torch.models.model import build_model
+
+    jcfg = j_smoke(j_get_config(arch), **overrides)
+    jmodel = j_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tmodel = build_model(smoke(get_config(arch), **overrides), device="cpu")
+    load_jax_params(tmodel, jax.tree.map(np.asarray, jparams))
+    return jcfg, jmodel, jparams, tmodel
+
+
+def model_inputs(cfg, rng, b):
+    """The non-token inputs a family's prefill takes, made with numpy: the
+    reference's batch entries and the port's keyword arguments."""
+    import jax.numpy as jnp
+    import torch
+
+    if cfg.family == "vlm":
+        name, shape = "vis_embeds", (b, cfg.vis_prefix_len, cfg.vis_embed_dim)
+    elif cfg.family == "encdec":
+        name, shape = "frames", (b, cfg.enc_len, cfg.d_model)
+    else:
+        return {}, {}
+    arr = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    return {name: jnp.asarray(arr)}, {name: torch.from_numpy(arr)}
+
+
+def assert_prefill_and_decode_match(arch, *, tol=2e-4, b=2, t=12, steps=3, **overrides):
+    """``prefill`` logits and every cache entry, then ``steps`` decode steps'
+    logits and caches (the KV caches grown by ``steps`` on both sides, as
+    the reference's serve loop pads them), port against reference."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro_torch.launch.serve import KV_CACHES, grow_cache
+
+    jcfg, jmodel, jparams, tmodel = model_pair(arch, **overrides)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, jcfg.vocab, (b, t + steps))
+    jextra, textra = model_inputs(jcfg, rng, b)
+
+    def close(got, want, what):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol, err_msg=what)
+
+    def same_cache(tc, jc, what):
+        assert set(tc) == set(jc), what
+        assert tc["len"] == int(jc["len"]), what
+        for key in set(jc) - {"len"}:
+            assert tuple(tc[key].shape) == jc[key].shape, (what, key)
+            assert tc[key].dtype == torch.float32, (what, key)
+            close(tc[key], jc[key], f"{what} cache {key}")
+
+    jlog, jc = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(toks[:, :t], jnp.int32),
+                                                 **jextra})
+    tlog, tc = tmodel.prefill(torch.from_numpy(toks[:, :t]), **textra)
+    assert tuple(tlog.shape) == jlog.shape == (b, 1, jcfg.vocab)
+    close(tlog, jlog, "prefill logits")
+    same_cache(tc, jc, "prefill")
+    jc = dict(jc)
+    for key in KV_CACHES:
+        if key in jc:
+            pad = [(0, 0)] * jc[key].ndim
+            pad[2] = (0, steps)
+            jc[key] = jnp.pad(jc[key], pad)
+    grow_cache(tc, steps)
+    decode = jax.jit(jmodel.decode_step)
+    for i in range(steps):
+        tok = toks[:, t + i : t + i + 1]
+        jlog, jc = decode(jparams, jc, jnp.asarray(tok, jnp.int32))
+        tlog, tc = tmodel.decode_step(tc, torch.from_numpy(tok))
+        close(tlog, jlog, f"decode step {i} logits")
+        same_cache(tc, jc, f"decode step {i}")
+    return tmodel

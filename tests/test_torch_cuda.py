@@ -14,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import raid
 from repro_torch.kernels import gf256_matmul as gfm
 from repro_torch.kernels import CODEC_KERNELS, launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels import parity_xor as px
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch.serve import grow_cache
+from repro_torch.models.config import smoke
+from repro_torch.models.model import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -262,12 +266,12 @@ WIDE_TOL = 1e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,n,heads", [(64, 128, 4), (128, 128, 2)])
+@pytest.mark.parametrize("p,n,heads", [(64, 128, 4), (128, 128, 2), (64, 64, 8)])
 def test_ssd_scan_at_the_serving_widths(cuda, dtype, p, n, heads):
-    """The heads layout at the serving model's widths (q = 128, n = 128,
-    p = 64: two 32-column slices per head) with its strided conv-output
-    views, and at q = n = p = 128, which the FMA kernel refused for shared
-    memory."""
+    """The heads layout at the serving models' widths (q = 128, p = 64: two
+    32-column slices per head; n = 128 for mamba2-1.3b, n = 64 for
+    zamba2-2.7b) with its strided conv-output views, and at q = n = p =
+    128, which the FMA kernel refused for shared memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(p + n)
     bsz, t = 2, 256
@@ -442,3 +446,46 @@ def test_checkpoint_engine_restores_card_tensors(cuda):
     out = a.restore(1, card)
     for k, v in card.items():
         assert out[k].is_cuda and out[k].dtype == v.dtype and torch.equal(out[k], v)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama4-scout-17b-a16e", "paligemma-3b",
+                                  "zamba2-2.7b", "whisper-small"])
+def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
+    """One model per family (dense, moe, vlm, hybrid, encdec) at smoke size
+    in f32: prefill and three decode steps on the card against the same
+    weights on the CPU, logits and caches within 2e-4 (the parity tests'
+    model tolerance); the hybrid's prefill launches each SSD kernel once per
+    Mamba-2 layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config(arch))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 15)))
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vis_embeds"] = rng.standard_normal((2, cfg.vis_prefix_len, cfg.vis_embed_dim))
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model))
+    runs = []
+    for model in (cpu, card):
+        dev = model.device
+        reset_launch_counts()
+        kw = {k: torch.from_numpy(0.1 * v).float().to(dev) for k, v in extra.items()}
+        logits, cache = model.prefill(toks[:, :12].to(dev), **kw)
+        launches = launch_counts()["ssd_scan"], launch_counts()["ssd_chunk_gram"]
+        grow_cache(cache, 3)
+        seen = [logits]
+        for i in range(3):
+            logits, cache = model.decode_step(cache, toks[:, 12 + i : 13 + i].to(dev))
+            seen.append(logits)
+        runs.append((seen, cache, launches))
+    (want, want_cache, none), (got, got_cache, launched) = runs
+    assert none == (0, 0)
+    assert launched == ((cfg.n_layers,) * 2 if cfg.family == "hybrid" else (0, 0))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=2e-4, rtol=2e-4)
+    assert got_cache.keys() == want_cache.keys() and got_cache["len"] == want_cache["len"]
+    for key in set(want_cache) - {"len"}:
+        torch.testing.assert_close(got_cache[key].cpu(), want_cache[key], atol=2e-4, rtol=2e-4)

@@ -21,8 +21,8 @@ from repro.models.model import MambaLM as JMambaLM
 from repro_torch.configs import get_config
 from repro_torch.models import mamba2 as tm
 from repro_torch.models.config import smoke
-from repro_torch.models.convert import load_jax_params, mamba_param_names
-from repro_torch.models.model import build_model
+from repro_torch.models.convert import load_jax_params, param_names
+from repro_torch.models.model import per_layer, build_model
 
 TOL = 2e-4
 
@@ -57,7 +57,7 @@ def test_convert_carries_every_leaf(pair):
     _, _, _, tree, tmodel = pair
     flat = {"/".join(str(k.key) for k in path): leaf
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
-    params = mamba_param_names(tmodel)
+    params = param_names(tmodel)
     assert set(flat) == set(params)
     for name, leaf in flat.items():
         assert np.array_equal(params[name].numpy(), leaf), name
@@ -70,7 +70,7 @@ def test_mamba_apply_prefill_and_decode(pair, t):
     x = rng.standard_normal((2, t, jcfg.d_model)).astype(np.float32)
     xn = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
     jp = jax.tree.map(lambda v: v[0], jparams["layers"]["block"])
-    tp = tmodel._layers()[0]
+    tp = per_layer(tmodel.layers.tree(), tmodel.cfg.n_layers)[0]["block"]
     jout, (jtail, jstate) = jm.mamba_apply(jp, jnp.asarray(x), jcfg)
     tout, (ttail, tstate) = tm.mamba_apply(tp, torch.from_numpy(x), tmodel.cfg)
     _close(tout, jout)

@@ -343,3 +343,78 @@ def test_zero1_shards_pad_and_cut_into_views():
     assert [s["a"].tolist() for s in shards] == [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 0, 0]]
     assert [s["b"].tolist() for s in shards] == [[0, 1], [2, 3], [4, 5], [6, 7]]
     assert shards[1]["b"].data_ptr() == state["b"].data_ptr() + 8  # a view, no copy
+
+
+# --------------------------------------------------------- the serving phases
+
+# The serving phases' sizes for a rehearsal: 3 requests of 12 tokens at
+# batch 2, 4 generated each; the decode check at t = 10 (a ragged chunk of 8).
+SERVE_TINY = dict(requests=3, batch=2, prompt=12, gen=4)
+CHECK_TINY = dict(batch=2, t=10, k=3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2.5-3b", "zamba2-2.7b"])
+def test_serving_path_phases_rehearse_on_the_cpu(arch):
+    """``model_setup``, ``serve_phase``, ``serve_profile`` and
+    ``decode_matches_prefill`` at smoke size; no device metric is written
+    from a CPU run."""
+    from repro_torch.models.config import smoke as smoke_cfg
+
+    smoke = _smoke()
+    ph = smoke.Phase("setup")
+    model = smoke.model_setup(arch, 0, ph, device="cpu", shrink=smoke_cfg, sizes=SERVE_TINY)
+    assert ph.info["arch"] == arch and ph.info["init_s"] > 0
+    assert ph.info["params"] == sum(w.numel() for w in model.parameters())
+    ph = smoke.Phase("serve")
+    st = smoke.serve_phase(model, 0, ph, sizes=SERVE_TINY)
+    assert (st.requests, st.prefill_calls, st.decode_tokens) == (3, 2, 2 * 2 * 3)
+    assert ph.info["prefill_tok_s"] > 0 and ph.info["peak_mem_bytes"] is None
+    ph = smoke.Phase("profile")
+    smoke.serve_profile(model, 0, ph, sizes=SERVE_TINY)
+    assert list(ph.info) == ["prefill", "decode_step"]
+    assert all(list(v) == ["wall_ms"] for v in ph.info.values())
+    ph = smoke.Phase("decode_check")
+    smoke.decode_matches_prefill(arch, 0, ph, device="cpu", shrink=smoke_cfg, sizes=CHECK_TINY)
+    assert len(ph.info["max_abs_err"]) == 3 and max(ph.info["max_abs_err"]) < 2e-4
+    assert ph.info["dtype"] == "float32"
+
+
+def test_moe_vlm_and_encdec_phases_rehearse_on_the_cpu():
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import smoke as smoke_cfg
+
+    smoke = _smoke()
+    real = L.moe_dispatch
+    ph = smoke.Phase("moe_serve")
+    smoke.moe_serve(0, ph, device="cpu", shrink=smoke_cfg,
+                    sizes=dict(smoke.MOE_SERVE, **SERVE_TINY))
+    info = ph.info
+    assert L.moe_dispatch is real  # the counting wrapper is taken out again
+    assert info["reduced"] == "2 of 2 layers" and info["requests_served"] == 3
+    # prefill: 2 calls x 2 layers x batch 2 x 12 tokens, top-1
+    assert info["prefill_routed_slots"] == 2 * 2 * 2 * 12
+    assert 0 <= info["prefill_dropped_share"] < 1
+    assert info["decode_dropped_share"] == 0  # one token always fits its expert
+    ph = smoke.Phase("vlm")
+    smoke.vlm_phase(0, ph, device="cpu", shrink=smoke_cfg, sizes=dict(smoke.VLM, **SERVE_TINY))
+    assert ph.info["with_prefix"]["vis_embeds"] == [2, 4, 32]
+    assert ph.info["with_prefix"]["decode_steps"] == smoke.VLM["decode_steps"]
+    assert ph.info["requests_served"] == 3  # then served without a prefix
+    ph = smoke.Phase("encdec")
+    smoke.encdec_phase(0, ph, device="cpu", shrink=smoke_cfg,
+                       sizes=dict(smoke.ENCDEC, **SERVE_TINY))
+    assert ph.info["frames"] == [2, 8, 64] and ph.info["decode_steps"] == 3
+    assert ph.info["decode_tok_s"] > 0
+
+
+def test_serving_sizes_match_the_published_shapes():
+    from repro_torch.configs import get_config
+
+    smoke = _smoke()
+    whisper = get_config(smoke.ENCDEC["arch"])
+    assert smoke.ENCDEC["prompt"] + smoke.ENCDEC["gen"] == 448  # whisper's decoder context
+    assert whisper.enc_len == 1500
+    llama = smoke.model_config(smoke.MOE_SERVE["arch"], n_layers=smoke.MOE_SERVE["layers"])
+    assert llama.param_count() == 6_473_175_040
+    assert smoke.model_config("qwen2.5-3b").param_count() == 3_397_009_408
+    assert smoke.model_config("zamba2-2.7b").param_count() == 2_422_379_968
