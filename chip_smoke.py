@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of ``repro_torch`` on one NVIDIA GPU: ZapRAID's datapath,
 its timed pipeline, serving every model family (Mamba-2, dense, MoE, VLM,
-the zamba2 hybrid, whisper), the block service, and erasure-coded
-checkpoints and optimizer state.
+the zamba2 hybrid, whisper), the block service, erasure-coded checkpoints
+and optimizer state, and training (mamba2-1.3b at full width on the SSD
+scan's forward and backward kernels, checkpointed restarts, every family).
 
 Run from the root of a checkout, with no arguments::
 
@@ -100,7 +101,27 @@ failing on the first error:
    (CUDA events) and peak device memory.  ``state_parity_kernels`` then
    holds ``stripe_xor`` k=4 and ``stripe_gf256`` (2,4) and (4,4) at the
    largest leaf (4 x 100.66 M int32 lanes) to their plain versions and times
-   them beside their bounds.
+   them beside their bounds;
+11. training -- ``ssd_grad`` holds the SSD scan's
+   backward kernel (``ssd_scan_bwd``) against autograd through the plain
+   scan, all six gradients (``SSD_GRAD_TOL``), at mamba2-1.3b's and
+   zamba2-2.7b's shapes in bf16 and f32 with and without h0 and the final
+   state's gradient, t < chunk, an unaligned view, the rows layout and a
+   ragged T through ``ssd_chunked``, each call twice and bit-equal; times
+   it at mamba2's training shape beside its bound and plain version (both
+   on CUDA events, the profiler's sum beside), and checks that its GEMM
+   kernels' SASS holds the FFMA it was built on.  ``mamba2_train``
+   trains mamba2-1.3b at full width (``TRAIN``) through
+   ``launch.train.run``: step wall time, trained tokens/s, peak memory,
+   finite losses and gradient norms, the SSD kernels' launches per step
+   (96 forward under remat, 48 backward) and one step under
+   ``torch.profiler``; ``mamba2_grad_check`` holds the loss's gradients
+   through the kernels to those through the plain scan (2 layers, f32,
+   ``TRAIN_GRAD_TOL``); ``train_ckpt`` runs the reference's default
+   training run (``TRAIN_CKPT``: RAID-5 checkpoints on the card's codec, a
+   failed lane, a restart) and the same with a degraded restore, and the
+   recomputed steps must repeat their losses; ``train_families`` takes one
+   train step of every architecture at smoke size.
 
 Each phase prints one JSON line.  The codec kernels' launch counts are
 zeroed just before phase 2 and read just after phase 4 (``launches``), and
@@ -110,13 +131,17 @@ of phase 7 and read just after it (``launches`` of the SSD rows for
 mamba2-1.3b, ``hybrid_launches`` for zamba2-2.7b); the codec's are zeroed
 again just before phase 8 and read just after phase 10's runs
 (``ckpt_launches``), before its kernels are timed.  The run fails unless each of the four codec kernels
-launched there.  The ``kernels`` line reports them all.
+launched there.  All of them are zeroed again just before ``mamba2_train``
+and read just after it (``train_launches``; ``launches`` of
+``ssd_scan_bwd``), and just before and after ``train_ckpt``'s two runs
+(``train_ckpt_launches``).  The ``kernels`` line reports them all.
 The last two lines are the card's name and power limit and the
 ``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -228,6 +253,40 @@ CKPT = dict(raid5_layers=4, raid6_layers=1,
 # and how much of it is held to the CPU's plain path (the plain_leaves
 # smallest leaves and the first plain_bytes of the largest).
 PARITY = dict(k=4, lost=2, plain_leaves=8, plain_bytes=1 << 20)
+
+# The SSD scan's backward kernel against autograd through the plain
+# sequential scan, both in f32 arithmetic: max |kernel - plain| over the
+# largest |plain| of each gradient.  In f32 they differ in summation order
+# and chunked vs step-by-step decays (~3e-6 seen); in bf16 dx, db and dc
+# come back rounded to bf16 on both sides (2^-8 relative each).
+SSD_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# Training mamba2-1.3b at full width through the entry point
+# (launch/train.py): steps of global_batch x seq_len tokens, bf16 with remat
+# as configured; profile_step is run under torch.profiler.  The gradient
+# check: full width, ``layers`` layers, f32, a ragged seq_len, the loss's
+# gradients through the kernels against those through the plain SSD scan,
+# per leaf over its largest value (floor: GRAD_FLOOR of the largest of all);
+# the forward kernel's f32 operands carry ~16 bits (SSD_TOL).
+TRAIN = dict(arch="mamba2-1.3b", steps=4, global_batch=4, seq_len=1024, ckpt_every=5,
+             profile_step=2)
+TRAIN_GRAD = dict(layers=2, batch=2, seq_len=250)
+TRAIN_GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-7
+# The reference's own default run of the training driver (smoke size, as
+# the reference trains): a checkpoint every 5 steps, lane 1 failed after
+# step 7, a restart after step 12 from step 10's checkpoint; the recomputed
+# steps 11 and 12 must repeat the first pass's losses at the reference
+# test's tolerance.
+TRAIN_CKPT = ["--arch", "smollm-135m", "--steps", "20", "--ckpt-every", "5",
+              "--fail-lane", "1", "--fail-at", "7", "--restart-at", "12"]
+# In that run the save at step 10 first rebuilds lane 1 on a hot spare (the
+# engine's writes need every lane), so the restore reads healthy lanes; the
+# same run with the lane failed after step 11 restores degraded.
+TRAIN_CKPT_RUNS = {"default": TRAIN_CKPT,
+                   "degraded_restore": TRAIN_CKPT[:9] + ["11"] + TRAIN_CKPT[10:]}
+RESTART_TOL = dict(rtol=1e-5, atol=1e-6)
+# One train step of every architecture at smoke size on the card.
+FAMILY_STEP = dict(global_batch=2, seq_len=16)
 
 
 def _die(msg: str) -> int:
@@ -429,8 +488,9 @@ def stripe_alu_ops(library: Path) -> dict[str, int]:
 
 
 # torch.profiler has kept no kernel event at all of a short window on the
-# H100's machine (a two-call window of a plain version, late in the run):
-# an empty window is profiled again, up to this many times in all.
+# H100's machine (a two-call window of a plain version, late in the run; the
+# 2,000-request window of timed_profile): an empty window is profiled again,
+# up to this many times in all.
 PROFILE_WINDOWS = 3
 
 
@@ -453,20 +513,11 @@ def _profiled_device_us(run) -> float:
     raise RuntimeError("torch.profiler recorded no device time for the timed calls")
 
 
-def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
-    """(device ms, call ms) per call, over ``iters`` calls cycling through
-    ``args_list`` (distinct copies whose total exceeds the 50 MB L2, so
-    inputs come from device memory).
-
-    Device ms is the summed time of the GPU kernels (and memsets) the calls
-    ran, from ``torch.profiler`` (``_profiled_device_us``).  Call ms is
-    CUDA-event time from the first call to the last, which includes the
-    host's launch overhead whenever the host cannot keep the card busy."""
+def _event_ms(fn, args_list, iters: int) -> float:
+    """CUDA-event ms per call, from the first of ``iters`` calls cycling
+    through ``args_list`` to the last, after two warm-up calls; it includes
+    the host's launch overhead whenever the host cannot keep the card busy."""
     import torch
-
-    def run():
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
 
     for a in args_list[:2]:
         fn(*a)
@@ -474,10 +525,27 @@ def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    run()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
     end.record()
     end.synchronize()
-    call_ms = start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters
+
+
+def _time_ms(fn, args_list, iters: int) -> tuple[float, float]:
+    """(device ms, call ms) per call, over ``iters`` calls cycling through
+    ``args_list`` (distinct copies whose total exceeds the 50 MB L2, so
+    inputs come from device memory).
+
+    Device ms is the summed time of the GPU kernels (and memsets) the calls
+    ran, from ``torch.profiler`` (``_profiled_device_us``).  Call ms is
+    CUDA-event time (``_event_ms``)."""
+
+    def run():
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+
+    call_ms = _event_ms(fn, args_list, iters)
     return _profiled_device_us(run) / 1e3 / iters, call_ms
 
 
@@ -1110,6 +1178,179 @@ def ssd_checks() -> list[dict]:
     return [scan_row, gram_row]
 
 
+def ssd_bwd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
+    """FLOPs the scan's gradient needs.  Per batch row and chunk, the lower
+    triangle of C B^T (shared by the heads); per head and chunk, the
+    triangle's products dY X^T, (L o G)^T dY, dG B and dG^T C, and the four
+    (q x n x p) products B dH', dY H^T, X dH'^T and (C o e^s)^T dY of the
+    state gradients."""
+    q = min(chunk, t)
+    tri = q * (q + 1) // 2
+    return (t // q) * (nb * 2 * tri * n + nb * nh * (4 * tri * p + 4 * tri * n + 8 * q * n * p))
+
+
+def ssd_bwd_bytes(args) -> int:
+    """Bytes the gradient must move: x, dt, a, b, c, h0, dy and the final
+    state's gradient read once; dx, ddt, da, db, dc (and dh0) written once."""
+    x, dt, a, b, c, h0, dy, dh = args
+    ins = sum(v.numel() * v.element_size() for v in args if v is not None)
+    outs = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
+    return ins + outs
+
+
+def bwd_fma_instructions(library: Path) -> dict[str, int]:
+    """FFMA instructions in the SASS of each instance of the backward's two
+    GEMM kernels (built for f32 FMA on the CUDA cores); raises if one has
+    none."""
+    import re
+
+    out = {}
+    for body in _sass(library).split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        kernel = re.search(r"(ssd_bwd_chunk_kernel|ssd_bwd_dstate_kernel)I(\w+?)EEv", name)
+        if kernel is None:
+            continue
+        key = f"{kernel[1]}<{'bf16' if 'bfloat16' in kernel[2] else 'f32'}>"
+        out[key] = len(re.findall(r"\bFFMA\b", body))
+    if len(out) != 4 or not all(out.values()):
+        raise RuntimeError(f"SSD backward kernels without FFMA in their SASS: {out}")
+    return out
+
+
+def ssd_grad_checks(library: Path) -> dict:
+    """Hold ``ssd_scan_bwd`` against autograd through the plain scan on the
+    card: all six gradients at mamba2-1.3b's and zamba2-2.7b's shapes in bf16
+    and f32, with and without h0 and the final state's gradient, t < chunk,
+    an unaligned view, the rows layout (a, b, c per row), and a ragged T
+    through ``ssd_chunked`` (the model's call, padding and slice included);
+    each twice, bit-equal.  Times it at
+    mamba2's training shape beside its bound and plain version.  Returns the
+    kernel's row."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    rng = np.random.default_rng(13)
+    cfg, hyb = get_config("mamba2-1.3b"), get_config("zamba2-2.7b")
+    nb, t, chunk = TRAIN["global_batch"], TRAIN["seq_len"], cfg.ssm_chunk
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def heads(dtype, nb, t, nh, p, n, h0=False, dh=False, skew=0):
+        """(x, dt, a, b, c, h0, dy, dh): x, b, c strided views of one conv
+        output as ``mamba_apply`` gives them; dy f32."""
+        wide = nh * p + 2 * n
+        conv = torch.from_numpy(rng.standard_normal(nb * t * wide + skew).astype(np.float32))
+        conv = conv.to("cuda", dtype)[skew:].view(nb, t, wide)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()  # noqa: E731
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (nb, t, nh)).astype(np.float32)).cuda()
+        a = -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,)).astype(np.float32)).cuda()
+        return (conv[..., : nh * p].reshape(nb, t, nh, p), dt, a,
+                conv[..., nh * p : nh * p + n], conv[..., nh * p + n :],
+                f(nb, nh, n, p) if h0 else None, f(nb, t, nh, p), f(nb, nh, n, p) if dh else None)
+
+    def rows(dtype, bh, t, p, n, h0=False):
+        """(x, dt, a, b, c, h0, dy, dh) in the rows layout: a and b, c per row."""
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()  # noqa: E731
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (bh, t)).astype(np.float32)).cuda()
+        a = -torch.from_numpy(rng.uniform(0.5, 2.0, (bh,)).astype(np.float32)).cuda()
+        return (f(bh, t, p).to(dtype), dt, a, f(bh, t, n).to(dtype), f(bh, t, n).to(dtype),
+                f(bh, n, p) if h0 else None, f(bh, t, p), f(bh, n, p))
+
+    main = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state)
+    zam = (hyb.ssm_nheads, hyb.ssm_head_dim, hyb.ssm_state)
+    cases = [
+        ("mamba2 bf16", bf16, heads(bf16, nb, t, *main), chunk),
+        ("mamba2 bf16 h0 dh", bf16, heads(bf16, nb, t, *main, h0=True, dh=True), chunk),
+        ("mamba2 f32", f32, heads(f32, nb, t, *main), chunk),
+        ("mamba2 f32 h0 dh", f32, heads(f32, nb, t, *main, h0=True, dh=True), chunk),
+        ("zamba2 bf16 dh", bf16, heads(bf16, nb, t, *zam, dh=True), chunk),
+        ("zamba2 f32 h0 dh", f32, heads(f32, nb, t, *zam, h0=True, dh=True), chunk),
+        ("t<chunk bf16 h0 dh", bf16, heads(bf16, 2, 100, 8, *main[1:], h0=True, dh=True), chunk),
+        ("t<chunk f32", f32, heads(f32, 2, 64, 8, *main[1:]), chunk),
+        ("unaligned bf16 h0 dh", bf16, heads(bf16, 2, 256, 8, *main[1:], True, True, skew=1),
+         chunk),
+    ] + [  # the Pallas kernel's rows layout, at the CPU tests' shapes
+        (f"rows t={tt} chunk={ch} {dt_}", d, rows(d, 3, tt, 8, 16, h0=h0), ch)
+        for tt, ch, h0 in [(64, 16, True), (256, 64, False)]
+        for dt_, d in (("f32", f32), ("bf16", bf16))
+    ]
+    names = ("dx", "ddt", "da", "db", "dc", "dh0")
+    worst, max_rel, max_abs = None, 0.0, 0.0
+
+    def hold(label, dtype, got, want, again=None):
+        nonlocal worst, max_rel, max_abs
+        for name, g, w, *g2 in zip(names, got, want, *([again] if again else [])):
+            if w is None:
+                continue
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"ssd_scan_bwd {label} {name}: {g.dtype} {tuple(g.shape)} "
+                                     f"against {w.dtype} {tuple(w.shape)}")
+            if g2 and not torch.equal(g, g2[0]):
+                raise AssertionError(f"ssd_scan_bwd {label} {name}: two calls differ")
+            err = float((g.float() - w.float()).abs().max())
+            rel = err / max(float(w.float().abs().max()), 1e-30)
+            if not rel <= SSD_GRAD_TOL[str(dtype).removeprefix("torch.")]:
+                raise AssertionError(f"ssd_scan_bwd {label} {name}: kernel differs from "
+                                     f"autograd through the plain scan ({rel} of the largest)")
+            max_abs = max(max_abs, err)
+            if rel > max_rel:
+                max_rel, worst = rel, f"{label} {name}"
+
+    for label, dtype, args, ch in cases:
+        got = ssd.ssd_scan_bwd(*args, chunk=ch)
+        again = ssd.ssd_scan_bwd(*args, chunk=ch)
+        hold(label, dtype, got, ssd.ssd_scan_bwd_plain(*args, chunk=ch), again)
+        del got, again
+    # a ragged T through the model's ssd_chunked: dt = 0 padding, the slice back
+    for dtype in (bf16, f32):
+        x, dt, a, b, c, h0, dy, dh = heads(dtype, 2, 250, 8, *main[1:], h0=True, dh=True)
+        grads = []
+        for dev in ("cuda", "cpu"):
+            ins = [v.detach().to(dev).requires_grad_() for v in (x, dt, a, b, c, h0)]
+            y, h = ssd_chunked(*ins, chunk=chunk)
+            ((y.float() * dy.to(dev)).sum() + (h * dh.to(dev)).sum()).backward()
+            grads.append([v.grad.to("cuda") for v in ins])
+        hold(f"ssd_chunked t=250 {dtype}", dtype, *grads)
+
+    # timed at mamba2-1.3b's training shape (bf16, no h0, no final-state
+    # gradient, as the loss gives it)
+    timed = heads(bf16, nb, t, *main)
+    copies = []
+    for args in (timed, heads(bf16, nb, t, *main)):
+        copies.append((*args, ssd.ssd_scan_states(*args[:6], chunk=chunk)[2]))
+    # Its time is the CUDA-event time of 10 calls back to back: the host
+    # queues a call's three kernels in tens of µs while the card takes
+    # milliseconds, so the events time the card.  The profiler's sum is
+    # printed beside it; on the card's machine it has dropped kernel events
+    # of a window (a sum 2 ms short of the events' 6 ms in one run).
+    profiler_ms, ms = _time_ms(
+        lambda *a: ssd.ssd_scan_bwd(*a[:8], chunk=chunk, hprev=a[8]), copies, 10)
+    # the plain version on CUDA events alone: profiling its ~10^5 small
+    # kernels per call has cost the profiler events of later windows
+    plain_ms = _event_ms(lambda *a: ssd.ssd_scan_bwd_plain(*a[:8], chunk=chunk), copies, 2)
+    flops = ssd_bwd_flops(nb, main[0], t, chunk, main[2], main[1])
+    nbytes = ssd_bwd_bytes(timed)
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+    return {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/mamba2.py:71", "launches": 0,
+        "max_abs_err": max_abs, "max_rel_err": max_rel, "worst_case": worst,
+        "tol": SSD_GRAD_TOL, "cases": len(cases) + 2,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+        "ms_from": "CUDA events", "profiler_ms": profiler_ms, "plain_ms_from": "CUDA events",
+        "shape": [list(v.shape) if v is not None else None for v in timed],
+        "bytes": nbytes, "flops": flops, "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms,
+        "bound_share": max(byte_ms, op_ms) / ms,
+        "f32_fma_flop_per_s": flops / (ms * 1e-3),
+        "ffma_instructions": bwd_fma_instructions(library),
+    }
+
+
 # ---------------------------------------------------- phases 2-4: datapath
 
 def write_stream(arr, data, ops) -> None:
@@ -1345,28 +1586,39 @@ def timed_busy_share(geom: dict, seed: int, ph: Phase,
                      n_requests: int = TIMED["profile_requests"]) -> None:
     """The card's busy share of the timed path: the first ``n_requests`` of
     ``timed_replay``'s stream on a second pipeline built the same way, under
-    ``torch.profiler``; kernel device time (and copies apart) over wall time."""
+    ``torch.profiler``; kernel device time (and copies apart) over wall time.
+    A window in which the profiler kept no kernel is replayed on a fresh
+    pipeline, up to ``PROFILE_WINDOWS`` in all; raises if none held one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts
 
-    pipe, _, payload_fn = timed_pipeline("cuda", geom, seed)
-    reqs = trace_requests(pipe.array.cfg.logical_blocks, TIMED["requests"], seed + 3)[:n_requests]
-    torch.cuda.synchronize()
-    before = launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.replay(reqs, payload_fn)
+    for window in range(PROFILE_WINDOWS):
+        # a fresh pipeline per window: the replay advances the pipeline's state
+        pipe, _, payload_fn = timed_pipeline("cuda", geom, seed)
+        reqs = trace_requests(pipe.array.cfg.logical_blocks, TIMED["requests"],
+                              seed + 3)[:n_requests]
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    after = launch_counts()
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.replay(reqs, payload_fn)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        after = launch_counts()
+        if any(e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset"))
+               for e in prof.key_averages()):
+            break
+        print(f"chip_smoke: timed_profile window {window + 1} of {PROFILE_WINDOWS} held no "
+              "kernel", file=sys.stderr, flush=True)
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     copies = [e for e in ev if e.key.startswith(("Memcpy", "Memset"))]
     kernels = [e for e in ev if e not in copies]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
     ph.info.update({
-        "requests": n_requests, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+        "requests": n_requests, "profile_windows": window + 1, "wall_ms": wall_ms,
+        "kernel_ms": kernel_ms,
         "copy_ms": copy_ms, "busy_share": kernel_ms / wall_ms,
         "busy_share_with_copies": (kernel_ms + copy_ms) / wall_ms,
         "kernels": sum(e.count for e in kernels),
@@ -2205,12 +2457,203 @@ def state_parity_kernels(lanes: list, int32_ops_per_s: float,
     return rows
 
 
+# ------------------------------------------------------ phases 11-13: training
+
+def _train_argv(spec: dict) -> list[str]:
+    return ["--arch", spec["arch"], "--no-smoke", "--steps", str(spec["steps"]),
+            "--global-batch", str(spec["global_batch"]), "--seq-len", str(spec["seq_len"]),
+            "--ckpt-every", str(spec["ckpt_every"])]
+
+
+def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None) -> dict:
+    """mamba2-1.3b at full width trained through ``launch.train.run``: step
+    wall time, trained tokens/s, peak device memory, finite losses and
+    gradient norms, the SSD kernels' launches per step (zeroed just before
+    the run, read just after: under remat each layer's forward scan runs
+    twice, once in the backward's recompute), and one profiled step's device
+    time by kernel and idle share.  Returns the launch counts since they
+    were last zeroed, which the caller does just before."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train
+
+    argv = argv or _train_argv(spec)
+    rep = {"profile_step": spec["profile_step"]} if device == "cuda" else {}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = train.run(argv + ["--device", device], report=rep)
+    counts = launch_counts()  # read just after it (zeroed by the caller just before)
+    steps = spec["steps"]
+    if len(losses) != steps or not all(map(math.isfinite, losses + rep["grad_norm"])):
+        raise AssertionError(f"training: losses {losses}, grad norms {rep['grad_norm']}")
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers * steps
+    want = {"ssd_scan": fwd, "ssd_chunk_gram": fwd, "ssd_scan_bwd": cfg.n_layers * steps}
+    for name, n in counts.items():
+        if device == "cuda" and n != want.get(name, 0):
+            raise AssertionError(f"training launched {name} {n} times, want "
+                                 f"{want.get(name, 0)}: {counts}")
+    steady = [s for i, s in enumerate(rep["step_s"]) if i not in (0, spec["profile_step"])]
+    step_s = statistics.median(steady)
+    ph.info.update({
+        "arch": cfg.name, "params": rep["params"], "dtype": cfg.dtype, "remat": cfg.remat,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "steps": steps,
+        "tokens_per_step": rep["tokens_per_step"], "losses": losses,
+        "grad_norms": rep["grad_norm"], "step_ms": [1e3 * s for s in rep["step_s"]],
+        "steady_step_ms": 1e3 * step_s, "trained_tok_s": rep["tokens_per_step"] / step_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+        "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+        "profile": rep.get("profile"),
+    })
+    return counts
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    """A context in which the models' SSD scan is the plain version (autograd
+    through the sequential scan) on every device: the oracle of the
+    gradient check."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    real = ops.ssd_chunk_scan
+    ops.ssd_chunk_scan = lambda x, dt, a, b, c, h0=None, *, chunk: \
+        ssd.ssd_scan_plain(x, dt, a, b, c, h0)
+    try:
+        yield
+    finally:
+        ops.ssd_chunk_scan = real
+
+
+def mamba2_grad_check(ph: Phase, device: str = "cuda", shrink=None,
+                      spec: dict = TRAIN_GRAD, seed: int = SEED) -> None:
+    """mamba2-1.3b at full width, ``spec["layers"]`` layers, f32: the loss
+    and its gradients through the SSD kernels against the same through the
+    plain scan, on the same weights and batch (a ragged length)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import _tree
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.steps import params_of, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model_config(TRAIN["arch"], shrink, n_layers=spec["layers"], dtype="float32")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed))
+    params = params_of(model)
+    batch = batch_for_step(DataConfig(spec["batch"], spec["seq_len"], cfg.vocab), cfg, 0,
+                           device=device)
+    loss, grads = value_and_grad(model, params, batch)
+    with _plain_ssd():
+        want_loss, want = value_and_grad(model, params, batch)
+    flat_g, flat_w = _tree.flatten_with_path(grads)[0], _tree.leaves(want)
+    top = max(float(w.abs().max()) for w in flat_w)
+    worst, worst_rel = None, 0.0
+    for (name, g), w in zip(flat_g, flat_w):
+        scale = max(float(w.abs().max()), GRAD_FLOOR * top / TRAIN_GRAD_TOL, 1e-30)
+        rel = float((g - w).abs().max()) / scale
+        if not rel <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient {name} through the kernels differs from the plain "
+                                 f"scan's: {rel} of its scale")
+        if rel > worst_rel:
+            worst, worst_rel = name, rel
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    if not (np.isfinite(float(loss)) and loss_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"loss {float(loss)} against the plain scan's {float(want_loss)}")
+    ph.info.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                    "batch": spec["batch"], "seq_len": spec["seq_len"], "tol": TRAIN_GRAD_TOL,
+                    "loss": float(loss), "loss_rel_err": loss_rel, "leaves": len(flat_w),
+                    "worst_leaf": worst, "worst_rel_err": worst_rel})
+
+
+def train_ckpt(ph: Phase, device: str = "cuda", runs=TRAIN_CKPT_RUNS) -> dict:
+    """The reference's default training run on the card, then the same with
+    the lane failed after the step-10 save: checkpoints every 5 steps
+    through a RAID-5 engine whose codec runs here, a restart after step 12
+    from step 10's checkpoint.  In the first run the save at step 10
+    rebuilds lane 1 on a hot spare first (decoding its chunks on the card)
+    and the restore reads four healthy lanes; in the second the restore
+    itself reads degraded.  The recomputed steps must repeat the first
+    pass's losses.  Returns the kernel launches since they were last zeroed,
+    which the caller does just before the two runs."""
+    import numpy as np
+    from repro_torch.kernels import CODEC_KERNELS, launch_counts
+    from repro_torch.launch import train
+
+    for tag, argv in runs.items():
+        args = train.parse_args(argv)
+        before = launch_counts()
+        rep = {}
+        losses = train.run(list(argv) + ["--device", device], report=rep)
+        after = launch_counts()
+        last = args.restart_at // args.ckpt_every * args.ckpt_every  # the checkpoint restored
+        first = losses[last : args.restart_at]
+        again = losses[args.restart_at : 2 * args.restart_at - last]
+        if len(losses) != args.steps + args.restart_at - last or \
+                not np.allclose(again, first, **RESTART_TOL):
+            raise AssertionError(f"{tag}: the restart did not recompute the same losses: "
+                                 f"{first} then {again}")
+        degraded = args.fail_at > last
+        if degraded and rep["engine"]["degraded_reads"] == 0:
+            raise AssertionError(f"{tag}: the restore did not read degraded: {rep['engine']}")
+        codec = {k: after[k] - before[k] for k in CODEC_KERNELS}
+        if device == "cuda" and not any(codec.values()):
+            raise AssertionError(f"{tag}: no codec kernel launched: {codec}")
+        ph.info[tag] = {"argv": list(argv), "losses": losses, "recomputed": again,
+                        "engine": rep["engine"], "codec_launches": codec,
+                        "step_ms_median": 1e3 * sorted(rep["step_s"])[len(rep["step_s"]) // 2]}
+    return launch_counts()  # read just after the two runs
+
+
+def train_families(ph: Phase, device: str = "cuda") -> None:
+    """One train step of every architecture at smoke size: a finite loss and
+    gradient norm, and parameters that changed."""
+    import math
+
+    import torch
+    from repro_torch.checkpoint import _tree
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.config import smoke
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+
+    out = {}
+    for arch in ARCHS:
+        t = time.perf_counter()
+        cfg = smoke(get_config(arch))
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+        model, step = steps.make_train_step(
+            cfg, opt_cfg, device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+        params = steps.params_of(model)
+        opt = steps.init_opt_state(model, params, opt_cfg)
+        batch = batch_for_step(DataConfig(FAMILY_STEP["global_batch"], FAMILY_STEP["seq_len"],
+                                          cfg.vocab), cfg, 0, device=device)
+        new, _, m = step(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        changed = any(not torch.equal(a, b)
+                      for a, b in zip(_tree.leaves(new), _tree.leaves(params)))
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and changed):
+            raise AssertionError(f"{arch}: loss {loss}, grad norm {gnorm}, changed {changed}")
+        out[arch] = {"family": cfg.family, "loss": loss, "grad_norm": gnorm,
+                     "seconds": time.perf_counter() - t}
+    ph.info["archs"] = out
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
     src = ROOT / "src"
     csrc = src / "repro_torch" / "kernels" / "csrc"
-    if not all((csrc / f).is_file() for f in ("codec.cu", "ssd_scan.cu")):
+    if not all((csrc / f).is_file() for f in ("codec.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")):
         return _die(f"no repro_torch package under {src}: run from a checkout")
     sys.path.insert(0, str(src))
     import torch
@@ -2344,18 +2787,45 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    with Phase("ssd_grad") as ph:
+        grad_row = ssd_grad_checks(lib)
+        ph.info.update({k: v for k, v in grad_row.items()
+                        if k not in ("route", "source", "replaces", "launches")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()  # the training run's launches start here
+    with Phase("mamba2_train") as ph:
+        train_path = mamba2_train(ph)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("mamba2_grad_check") as ph:
+        mamba2_grad_check(ph)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()  # the checkpointed training runs' launches start here
+    with Phase("train_ckpt") as ph:
+        train_ckpt_path = train_ckpt(ph)
+    gc.collect()
+    with Phase("train_families") as ph:
+        train_families(ph)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for r in rows:
         r["launches"] = main_path[r["name"]]
     for r in ssd_rows:
         r["launches"] = serving["mamba2"][r["name"]]
-    rows += ssd_rows
+    grad_row["launches"] = train_path["ssd_scan_bwd"]
+    rows += ssd_rows + [grad_row]
     for r in rows:
         r["timed_launches"] = timed_path[r["name"]]
         r["ckpt_launches"] = ckpt_path[r["name"]]
         r["hybrid_launches"] = serving["hybrid"][r["name"]]
+        r["train_launches"] = train_path[r["name"]]
+        r["train_ckpt_launches"] = train_ckpt_path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_launches",
-            "ckpt_launches", "hybrid_launches")
+            "ckpt_launches", "hybrid_launches", "train_launches", "train_ckpt_launches")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ and the latency recorder; ``obs`` and ``cache`` the tracing/metrics/SLO and
 cache tiers the pipeline attaches; ``kernels`` holds the CUDA XOR, GF(256)
 and SSD-scan kernels with their plain torch versions; ``integrity`` holds the
 per-block CRC32C;
-``models``, ``configs`` and ``launch`` hold the Mamba-2 model, the
-architecture registry and the serving driver.  Entry points run on ``cuda``
-unless the caller asks for ``cpu``.
+``models``, ``configs`` and ``launch`` hold the model families, the
+architecture registry and the serving and training drivers; ``data``,
+``optim``, ``train`` and ``distributed.compression`` the data pipeline,
+AdamW, the step functions and gradient compression.  Entry points run on
+``cuda`` unless the caller asks for ``cpu``.
 """

@@ -1,2 +1,3 @@
 """Distributed-training runtime pieces: the elastic runtime and the
-group-bounded commit scheduler (``elastic``)."""
+group-bounded commit scheduler (``elastic``), and gradient compression with
+error feedback (``compression``)."""

@@ -1,5 +1,6 @@
 """The port's CUDA kernels, their wrappers and plain versions: the stripe
-codec's (``csrc/codec.cu``) and the Mamba-2 SSD scan (``csrc/ssd_scan.cu``).
+codec's (``csrc/codec.cu``) and the Mamba-2 SSD scan (``csrc/ssd_scan.cu``)
+with its gradient (``csrc/ssd_scan_bwd.cu``).
 
 Every wrapper counts its kernel launches; :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to zero.  ``CODEC_KERNELS`` names

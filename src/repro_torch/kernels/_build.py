@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu")
+SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu", CSRC / "ssd_scan_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,11 +119,13 @@ def load() -> ctypes.CDLL:
             lib.codec_host_device_pointer.restype = i
             lib.codec_can_map_host_memory.argtypes = [ctypes.POINTER(i)]
             lib.codec_can_map_host_memory.restype = i
-            lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            lib.ssd_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                      i, i, i, i, i, i, vp, vp]
             lib.ssd_chunk_gram.argtypes = [i, vp, vp, vp, i, i, i, i, vp, vp]
             lib.ssd_chunk_gram.restype = i
             lib.ssd_scan.restype = i
+            lib.ssd_scan_bwd.argtypes = [i, *[vp] * 18, *[i] * 8, vp, vp]
+            lib.ssd_scan_bwd.restype = i
             _lib = lib
         return _lib
 

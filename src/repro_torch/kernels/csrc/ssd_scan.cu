@@ -98,6 +98,7 @@ struct SsdArgs {
   float* gram;      // G tiles, (batch, chunk, tile, lane, 8) f32
   float* y;
   float* hout;      // (rows, n, p) contiguous
+  float* hprev;     // (batch, t / q, nh, n, p) f32: the state entering each chunk, or null
   int nh, t, q, n, p;
   // element strides; row r is (bi, hi) = (r / nh, r % nh)
   long long sx_b, sx_h, sx_t;
@@ -578,6 +579,17 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs arg
     }
 
     if (has_h) {
+      // The state entering the chunk, for the backward pass (training).
+      if (args.hprev) {
+        float* hp_out = args.hprev + (((long long)bi * nc + ci) * args.nh + hi) * n * p + p0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = hr + (e >> 1) * 8, c = 8 * j + 2 * t4 + (e & 1);
+            if (r < n && c < pw) hp_out[(long long)r * p + c] = acc_h[j][e];
+          }
+      }
       // h = exp(s_last) h + (B o w)^T X; A = (B o w)^T has this warp's
       // states as rows and time as k.
       const bf16* b_[2] = {bs(k), bs(1)};
@@ -708,16 +720,18 @@ extern "C" int ssd_chunk_gram(int dtype, const void* b, const void* c, void* gra
 
 // The scan: G into `gram` ((rows / nh) * (t / q) * tiles * 256 floats, tiles
 // = qt (qt + 1) / 2 for qt = ceil(q / 16)), then y and h_final.  `rows` is batch * heads; `strides` holds the 15
-// element strides in SsdArgs order.
+// element strides in SsdArgs order.  A non-null `hprev` ((rows / nh, t / q,
+// nh, n, p) f32) receives the state entering each chunk, which the backward
+// pass (ssd_scan_bwd.cu) reads.
 extern "C" int ssd_scan(int dtype, const void* x, const void* dt, const void* a,
                         const void* b, const void* c, const void* h0, void* gram, void* y,
-                        void* hout, int rows, int nh, int t, int q, int n, int p,
+                        void* hout, void* hprev, int rows, int nh, int t, int q, int n, int p,
                         const long long* strides, void* stream) {
   if (rows <= 0 || nh <= 0 || rows % nh || bad_shape(q, n, p, t, dtype))
     return (int)cudaErrorInvalidValue;
   SsdArgs args{x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c,
                static_cast<const float*>(h0), static_cast<float*>(gram), static_cast<float*>(y),
-               static_cast<float*>(hout), nh, t, q, n, p,
+               static_cast<float*>(hout), static_cast<float*>(hprev), nh, t, q, n, p,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
                strides[12], strides[13], strides[14]};

@@ -24,8 +24,20 @@ type); dt, a and h0 are f32; y and h come back in f32.  As in the Pallas
 kernel, q = min(chunk, t) and t must be a multiple of q: ``ssd_chunked``
 pads a ragged t with dt = 0 steps before it calls here.
 
+The gradient.  :class:`SSDScanFn` is the scan as a ``torch.autograd.Function``:
+on the card its forward is the same kernel, also writing the state that
+enters each chunk (``hprev``, (B, T/q, H, N, P) f32, the reference's
+``h_prev``), and its backward launches ``csrc/ssd_scan_bwd.cu``
+(:func:`ssd_scan_bwd`): dx, ddt, da, db, dc and dh0 from dy and the final
+state's gradient, b's and c's summed over the heads in a fixed order, so the
+same inputs give the same bits.  On the CPU its forward is the plain
+version and its backward autograd through it (:func:`ssd_scan_bwd_plain`),
+which is also what the tests and ``chip_smoke.py`` hold the kernel to.
+
 ``LAUNCHES`` counts kernel launches: ``ssd_scan`` once per scan and
-``ssd_chunk_gram`` once per scan or ``chunk_gram`` call.
+``ssd_chunk_gram`` once per scan or ``chunk_gram`` call; ``ssd_scan_bwd``
+once per backward call (its three kernels: the state gradients chunk by
+chunk, the per-chunk gradients, the fixed-order sums).
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ DEFAULT_CHUNK = 128
 MAX_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"ssd_scan": 0, "ssd_chunk_gram": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_chunk_gram": 0, "ssd_scan_bwd": 0}
 
 
 def _geometry(x, dt, a, b, c, h0, chunk):
@@ -99,23 +111,25 @@ def _check_kernel_operands(x, b, c, h0, q, n, p):
         raise ValueError("ssd_scan: h0 must be contiguous")
 
 
-def _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p):
+def _strides3(v, rows: bool):
+    """(batch, head, time) element strides of a (B, T, H, ...) operand, or of
+    a (bh, t, ...) one in the rows layout (batch = bh, one head)."""
+    return (v.stride(0), 0, v.stride(1)) if rows else (v.stride(0), v.stride(2), v.stride(1))
+
+
+def _a_strides(a, rows: bool):
+    """(batch, head) strides of a: one value per row, or per head."""
+    return (a.stride(0), 0) if rows else (0, a.stride(0))
+
+
+def _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p, hprev=None):
     dev = x.device
-    if x.ndim == 4:
-        y = torch.empty((nb, t, nh, p), dtype=torch.float32, device=dev)
-        hout = torch.empty((nb, nh, n, p), dtype=torch.float32, device=dev)
-        # (batch, head, time) strides of each operand
-        sx = (x.stride(0), x.stride(2), x.stride(1))
-        sdt = (dt.stride(0), dt.stride(2), dt.stride(1))
-        sa = (0, a.stride(0))
-        sy = (y.stride(0), y.stride(2), y.stride(1))
-    else:  # rows layout: batch = bh, one head
-        y = torch.empty((nb, t, p), dtype=torch.float32, device=dev)
-        hout = torch.empty((nb, n, p), dtype=torch.float32, device=dev)
-        sx = (x.stride(0), 0, x.stride(1))
-        sdt = (dt.stride(0), 0, dt.stride(1))
-        sa = (a.stride(0), 0)
-        sy = (y.stride(0), 0, y.stride(1))
+    rows = x.ndim == 3
+    y = torch.empty((nb, t, p) if rows else (nb, t, nh, p), dtype=torch.float32, device=dev)
+    hout = torch.empty((nb, n, p) if rows else (nb, nh, n, p), dtype=torch.float32,
+                       device=dev)
+    sx, sdt, sa, sy = _strides3(x, rows), _strides3(dt, rows), _a_strides(a, rows), \
+        _strides3(y, rows)
     if y.numel() == 0 and hout.numel() == 0:
         return y, hout
     gram = _gram_scratch(nb, t, q, dev)
@@ -123,7 +137,8 @@ def _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p):
                                        c.stride(0), c.stride(1), *sy)
     _build.launch("ssd_scan", _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                   b.data_ptr(), c.data_ptr(), None if h0 is None else h0.data_ptr(),
-                  gram.data_ptr(), y.data_ptr(), hout.data_ptr(), nb * nh, nh, t, q, n, p,
+                  gram.data_ptr(), y.data_ptr(), hout.data_ptr(),
+                  None if hprev is None else hprev.data_ptr(), nb * nh, nh, t, q, n, p,
                   strides)
     LAUNCHES["ssd_chunk_gram"] += 1
     LAUNCHES["ssd_scan"] += 1
@@ -193,3 +208,120 @@ def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int = DEFAULT_CHUNK):
         return ssd_scan_plain(x, dt, a, b, c, h0)
     _check_kernel_operands(x, b, c, h0, q, n, p)
     return _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p)
+
+
+# ------------------------------------------------------------------ gradient
+
+def _state_shape(nb, nh, t, q, n, p, rows: bool):
+    """Shape of the per-chunk states (``hprev``) of a scan."""
+    return (nb, t // q, 1, n, p) if rows else (nb, t // q, nh, n, p)
+
+
+def ssd_scan_states(x, dt, a, b, c, h0=None, *, chunk: int = DEFAULT_CHUNK):
+    """The scan on the card that also returns the state entering each chunk:
+    (y, h_final, hprev (B, T/q, H, N, P) f32; (bh, t/q, 1, n, p) in the rows
+    layout).  CUDA tensors only."""
+    nb, nh, t, q, n, p = _geometry(x, dt, a, b, c, h0, chunk)
+    if x.device.type != "cuda":
+        raise ValueError("ssd_scan_states: the chunk states come from the CUDA kernel")
+    _check_kernel_operands(x, b, c, h0, q, n, p)
+    hprev = torch.empty(_state_shape(nb, nh, t, q, n, p, x.ndim == 3), dtype=torch.float32,
+                        device=x.device)
+    y, h = _launch(x, dt, a, b, c, h0, nb, nh, t, q, n, p, hprev)
+    return y, h, hprev
+
+
+def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dh, *, chunk: int = DEFAULT_CHUNK):
+    """The plain version of the gradient: autograd through
+    :func:`ssd_scan_plain` (``chunk`` only checks the geometry).  Returns
+    (dx, ddt, da, db, dc, dh0), dh0 None without h0."""
+    _geometry(x, dt, a, b, c, h0, chunk)
+    ins = [v.detach().requires_grad_() if v is not None else None
+           for v in (x, dt, a, b, c, h0)]
+    with torch.enable_grad():
+        y, h = ssd_scan_plain(*ins)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        live = [v for v in ins if v is not None]
+        got = torch.autograd.grad(outs, live, grads, allow_unused=True)
+    it = iter(got)
+    return tuple(None if v is None else next(it) for v in ins)
+
+
+def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, *, chunk: int = DEFAULT_CHUNK, hprev=None):
+    """The scan's gradient: (dx, ddt, da, db, dc, dh0) from ``dy`` (y's
+    gradient, f32) and ``dh`` (h_final's, or None for zeros); dh0 is None
+    without h0.  dx, db, dc come back in x's type, the rest in f32.  A CPU
+    tensor takes :func:`ssd_scan_bwd_plain`; a CUDA tensor launches
+    ``csrc/ssd_scan_bwd.cu``, reading the chunk states ``hprev`` of the
+    forward (:func:`ssd_scan_states`; recomputed when not given)."""
+    nb, nh, t, q, n, p = _geometry(x, dt, a, b, c, h0, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    _check_kernel_operands(x, b, c, h0, q, n, p)
+    rows = x.ndim == 3
+    y_shape = (nb, t, p) if rows else (nb, t, nh, p)
+    h_shape = (nb, n, p) if rows else (nb, nh, n, p)
+    if tuple(dy.shape) != y_shape or (dh is not None and tuple(dh.shape) != h_shape):
+        raise ValueError(f"ssd_scan_bwd: dy must be {y_shape} and dh {h_shape}")
+    if hprev is None:
+        _, _, hprev = ssd_scan_states(x, dt, a, b, c, h0, chunk=chunk)
+    if tuple(hprev.shape) != _state_shape(nb, nh, t, q, n, p, rows) or \
+            hprev.dtype != torch.float32 or not hprev.is_contiguous():
+        raise ValueError(f"ssd_scan_bwd: hprev must be contiguous f32 "
+                         f"{_state_shape(nb, nh, t, q, n, p, rows)}")
+    dev, f32 = x.device, torch.float32
+    dy = dy.to(f32).contiguous()
+    dh = None if dh is None else dh.to(f32).contiguous()
+    nrows = nb * nh
+    dstate = torch.empty_like(hprev)
+    dx = torch.empty(y_shape, dtype=x.dtype, device=dev)
+    ddt = torch.empty(dt.shape, dtype=f32, device=dev)
+    dh0 = torch.empty(h_shape, dtype=f32, device=dev) if h0 is not None else None
+    dbp = torch.empty((nrows, t, n), dtype=f32, device=dev)
+    dcp = torch.empty_like(dbp)
+    dap = torch.empty((nrows, t // q), dtype=f32, device=dev)
+    db = torch.empty((nb, t, n), dtype=x.dtype, device=dev)
+    dc = torch.empty_like(db)
+    da = torch.empty(a.shape, dtype=f32, device=dev)
+    strides = (ctypes.c_longlong * 21)(
+        *_strides3(x, rows), *_strides3(dt, rows), *_a_strides(a, rows),
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        *_strides3(dy, rows), *_strides3(dx, rows), *_strides3(ddt, rows))
+    ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+    _build.launch("ssd_scan_bwd", _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                  b.data_ptr(), c.data_ptr(), dy.data_ptr(), ptr(dh), hprev.data_ptr(),
+                  dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), ptr(dh0), dbp.data_ptr(),
+                  dcp.data_ptr(), dap.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+                  nrows, nh, t, q, n, p, int(rows), a.shape[0], strides)
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt, da, db, dc, dh0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The scan with its gradient: ``SSDScanFn.apply(x, dt, a, b, c, h0,
+    chunk) -> (y, h_final)``, both f32.  On the card the forward keeps the
+    chunk states for the backward kernel; on the CPU the plain version runs
+    both ways.  A gradient given as None counts as zeros; dh0 is None when
+    h0 is."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, chunk):
+        if x.device.type == "cuda":
+            y, h, hprev = ssd_scan_states(x, dt, a, b, c, h0, chunk=chunk)
+        else:
+            y, h = ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
+            hprev = None
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b, c, h0, hprev)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b, c, h0, hprev = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, chunk=ctx.chunk, hprev=hprev)
+        return (*grads, None)

@@ -1,1 +1,2 @@
-"""Entry points: the serving driver."""
+"""Entry points: the serving driver (``serve``) and the training driver
+(``train``)."""

@@ -4,7 +4,10 @@ The counterpart of the JAX package's ``models/mamba2.py``, with one change
 of route: ``ssd_chunked`` keeps the reference's signature and padding but
 hands the scan to ``kernels.ops.ssd_chunk_scan``, so prefill on the card runs
 the hand-written CUDA SSD kernel (a CPU tensor runs its plain sequential
-version).  Decode is the single-step recurrence in plain torch, as in the
+version).  It is differentiable end to end: under autograd the scan runs as
+``SSDScanFn``, whose backward is the CUDA kernel ``ssd_scan_bwd`` on the
+card, and the dt = 0 padding of a ragged T and the slice back to T pass
+their gradients through.  Decode is the single-step recurrence in plain torch, as in the
 reference.  B/C projections are shared across heads (ngroups=1).
 
 Block structure (Mamba-2 paper):

@@ -18,7 +18,19 @@ are, so ``convert.py`` carries the reference's init across leaf by leaf,
 and the layer loops index them.  Weights are drawn from ``generator`` with
 the reference's shapes and scales (torch's numbers, not jax's).
 
-API (every call runs under ``torch.no_grad``):
+API:
+  loss(batch) -> scalar f32: mean next-token cross-entropy of ``batch``
+    (``tokens``, ``labels`` (B,T), and ``vis_embeds`` for a VLM or
+    ``frames`` for an encoder-decoder, as ``data/pipeline.py`` makes them);
+    the train step's target (``train/steps.py``), differentiable through
+    every layer (the SSD scan through its backward kernel on the card).
+    With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant) and is recomputed in the backward pass, the reference's
+    per-layer ``jax.checkpoint``: it changes memory only, not the numbers;
+  forward(method, *args) -> ``getattr(self, method)(*args)``, so that
+    ``torch.func.functional_call(model, params, ("loss", batch))`` runs any
+    entry point on a parameter tree given by the caller;
+and, under ``torch.no_grad``:
   prefill(tokens (B,T), ...) -> (last logits (B,1,V), cache)
   decode_step(cache, tokens (B,1)) -> (logits (B,1,V), cache)
   init_cache(batch, max_len) -> a zeroed cache of the reference's shapes
@@ -34,6 +46,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.raid import check_device
 from repro_torch.models import layers as L
@@ -43,7 +56,10 @@ from repro_torch.models.config import ModelConfig
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: a dict becomes a submodule, a
-    tensor a frozen parameter, each under its key."""
+    tensor a parameter, each under its key.  The registered parameters stay
+    frozen (serving); training runs the model on a tree of tensors that
+    require grad, through ``torch.func.functional_call``
+    (``train/steps.py``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -75,6 +91,14 @@ def _ones(cfg: ModelConfig, shape, device) -> torch.Tensor:
     return torch.ones(shape, dtype=L.dtype_of(cfg), device=device)
 
 
+def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``labels`` under ``logits``, in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
 def _setup(cls, cfg: ModelConfig, families: tuple[str, ...], device, generator):
     """The checked device and the generator (seed 0 unless one is given)
     of a model of class ``cls``, which runs ``families``."""
@@ -95,6 +119,18 @@ class _LM(ParamTree):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def forward(self, method: str, *args, **kwargs):
+        """``getattr(self, method)(*args, **kwargs)``: lets
+        ``torch.func.functional_call`` run any entry point."""
+        return getattr(self, method)(*args, **kwargs)
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``; under ``cfg.remat`` while autograd records, as a
+        non-reentrant ``torch.utils.checkpoint`` (recomputed in backward)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def _grow_check(self, cache: dict, key: str) -> None:
         if cache["len"] >= cache[key].shape[2]:
@@ -154,6 +190,22 @@ class TransformerLM(_LM):
         if self.cfg.family != "vlm":
             raise ValueError(f"{self.cfg.name}: vis_embeds given to a {self.cfg.family!r} model")
         return torch.cat([vis_embeds.to(x.dtype) @ self.vis_proj, x], dim=1)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        vis = batch.get("vis_embeds") if cfg.family == "vlm" else None
+        x = self._inputs(batch["tokens"].long(), vis)
+        positions = _positions(*x.shape[:2], x.device)
+
+        def layer(p, h):
+            return self._layer(p, h, positions, bf16_reduce=cfg.bf16_reduce)[0]
+
+        for p in per_layer(self.layers.tree(), cfg.n_layers):
+            x = self._remat(layer, p, x)
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        if vis is not None:
+            x = x[:, vis.shape[1]:, :]
+        return _ce_loss(self._logits(x), batch["labels"])
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, vis_embeds: torch.Tensor | None = None):
@@ -236,6 +288,23 @@ class MambaLM(_LM):
     def _is_app(self, li: int) -> bool:
         every = self.cfg.shared_attn_every
         return self.hybrid and li % every == every - 1
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """The remat body is one Mamba-2 layer; the hybrid's shared block
+        runs outside it, as in the reference."""
+        cfg = self.cfg
+        x = self.embed[batch["tokens"].long()]
+        positions = _positions(*x.shape[:2], x.device)
+
+        def layer(p, h):
+            return h + M.mamba_apply(p["block"], L.rmsnorm(h, p["ln"], cfg.norm_eps), cfg)[0]
+
+        for i, p in enumerate(per_layer(self.layers.tree(), cfg.n_layers)):
+            x = self._remat(layer, p, x)
+            if self._is_app(i):
+                x, _ = self._shared_attn(x, positions)
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return _ce_loss(x @ self.lm_head, batch["labels"])
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
@@ -352,12 +421,16 @@ class EncDecLM(_LM):
         cfg = self.cfg
         x = frames.to(L.dtype_of(cfg))
         positions = _positions(*x.shape[:2], x.device)
-        for p in per_layer(self.enc_layers.tree(), cfg.enc_layers):
+
+        def layer(p, x):
             q, k, v = L._qkv(p["attn"], L.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
             x = x + self._attend(self._heads(q), k, v) @ p["attn"]["wo"]
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+            return x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+
+        for p in per_layer(self.enc_layers.tree(), cfg.enc_layers):
+            x = self._remat(layer, p, x)
         return L.rmsnorm(x, self.enc_norm, cfg.norm_eps)
 
     def _cross_kv(self, enc_out):
@@ -365,15 +438,15 @@ class EncDecLM(_LM):
         (L, B, S, KV, HD).  The reference's ``_qkv`` also projects a query
         it drops; only K and V are computed here."""
         cfg = self.cfg
-        b, s = enc_out.shape[:2]
-        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd())
-        ck, cv = enc_out.new_empty(shape), enc_out.new_empty(shape)
-        for i, p in enumerate(per_layer(self.dec_layers.tree(), cfg.n_layers)):
+        shape = (*enc_out.shape[:2], cfg.n_kv_heads, cfg.hd())
+        ks, vs = [], []
+        for p in per_layer(self.dec_layers.tree(), cfg.n_layers):
             k, v = enc_out @ p["cross"]["wk"], enc_out @ p["cross"]["wv"]
             if cfg.qkv_bias:
                 k, v = k + p["cross"]["bk"], v + p["cross"]["bv"]
-            ck[i], cv[i] = k.view(shape[1:]), v.view(shape[1:])
-        return ck, cv
+            ks.append(k.view(shape))
+            vs.append(v.view(shape))
+        return torch.stack(ks), torch.stack(vs)
 
     def _dec_layer(self, p, h, positions, cross_k, cross_v, kv_cache=None, cache_len=None):
         cfg = self.cfg
@@ -389,6 +462,20 @@ class EncDecLM(_LM):
 
     def _logits(self, x):
         return (x @ self.embed.T) * self.cfg.d_model ** -0.5
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        ck, cv = self._cross_kv(self._encode(batch["frames"]))
+        x = self.embed[batch["tokens"].long()]
+        positions = _positions(*x.shape[:2], x.device)
+
+        def layer(p, h, k, v):
+            return self._dec_layer(p, h, positions, k, v)[0]
+
+        for i, p in enumerate(per_layer(self.dec_layers.tree(), cfg.n_layers)):
+            x = self._remat(layer, p, x, ck[i], cv[i])
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return _ce_loss(self._logits(x), batch["labels"])
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, frames: torch.Tensor | None = None):

@@ -489,3 +489,75 @@ def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
     assert got_cache.keys() == want_cache.keys() and got_cache["len"] == want_cache["len"]
     for key in set(want_cache) - {"len"}:
         torch.testing.assert_close(got_cache[key].cpu(), want_cache[key], atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------------------- the SSD scan's gradient
+
+def _ssd_heads(seed, bsz, t, nh, p, n, dtype, h0, dh, device):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    return (f(bsz, t, nh, p).to(device, dtype),
+            torch.from_numpy(rng.uniform(0.01, 0.3, (bsz, t, nh)).astype(np.float32)).to(device),
+            torch.from_numpy(-rng.uniform(0.5, 2.0, (nh,)).astype(np.float32)).to(device),
+            f(bsz, t, n).to(device, dtype), f(bsz, t, n).to(device, dtype),
+            f(bsz, nh, n, p).to(device) if h0 else None, f(bsz, t, nh, p).to(device),
+            f(bsz, nh, n, p).to(device) if dh else None)
+
+
+# max |kernel - plain| over the largest |plain| of each gradient: f32 sums in
+# another order; in bf16 dx, db, dc are rounded to bf16 on both sides
+SSD_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,q,h0,dh", [
+    ((2, 64, 4, 64, 128), 32, True, True), ((2, 100, 3, 16, 16), 128, False, True),
+    ((1, 256, 2, 64, 64), 128, True, False), ((3, 48, 2, 8, 16), 16, False, False)])
+def test_ssd_scan_bwd_matches_plain(cuda, dtype, shape, q, h0, dh):
+    args = _ssd_heads(sum(shape), *shape, dtype, h0, dh, cuda)
+    reset_launch_counts()
+    got = ssd.ssd_scan_bwd(*args, chunk=q)
+    again = ssd.ssd_scan_bwd(*args, chunk=q)
+    want = ssd.ssd_scan_bwd_plain(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan_bwd"] == 2
+    for name, g, g2, w in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, again, want):
+        if w is None:
+            assert g is None and name == "dh0"
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), f"{name}: two calls differ"
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= SSD_GRAD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "smollm-135m", "whisper-small"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of the smoke model on the card against the CPU's, f32:
+    loss and grad norm at 2e-4 (the serving tests' card-vs-CPU tolerance),
+    the SSD kernels (forward with its states, and backward) launched."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+
+    cfg = smoke(get_config(arch))
+    out = {}
+    for dev in ("cpu", cuda):
+        model, step = steps.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2),
+                                            device=dev,
+                                            generator=torch.Generator(device="cpu").manual_seed(1)
+                                            if dev == "cpu" else None)
+        if dev != "cpu":
+            for name, p in model.named_parameters():
+                p.data.copy_(out["cpu_params"][name])
+        else:
+            out["cpu_params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        params = steps.params_of(model)
+        batch = batch_for_step(DataConfig(2, 19, cfg.vocab), cfg, 0, device=dev)
+        reset_launch_counts()
+        _, _, m = step(params, steps.init_opt_state(model, params, AdamWConfig()), batch)
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]), launch_counts())
+    (l0, g0, _), (l1, g1, counts) = out["cpu"], out[str(cuda)]
+    assert abs(l1 - l0) <= 2e-4 * abs(l0) and abs(g1 - g0) <= 2e-4 * abs(g0)
+    ssm = cfg.family in ("ssm", "hybrid")
+    assert (counts["ssd_scan_bwd"] == cfg.n_layers) == ssm

@@ -418,3 +418,82 @@ def test_serving_sizes_match_the_published_shapes():
     assert llama.param_count() == 6_473_175_040
     assert smoke.model_config("qwen2.5-3b").param_count() == 3_397_009_408
     assert smoke.model_config("zamba2-2.7b").param_count() == 2_422_379_968
+
+
+# ------------------------------------------------------------------- training
+
+_BWD = "48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_b591142620ssd_bwd_chunk_kernelI13__nv_bfloat16"
+_DSTATE = "48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_b591142621ssd_bwd_dstate_kernelIf"
+
+
+def _bwd_listing(name, body):
+    lines = [f"\t\tFunction : _ZN{name}EEvNS_7BwdArgsE"]
+    lines += [f"        /*{16 * i:04x}*/ {ins} ; /* 0x0 */" for i, ins in enumerate(body)]
+    return "\n".join(lines) + "\n"
+
+
+def test_bwd_fma_instructions_count_ffma(monkeypatch):
+    smoke = _smoke()
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    fma = ["FFMA R1, R2, R3, R1", "FFMA R4, R2, R5, R4", "EXIT"]
+    sass = "".join(_bwd_listing(n, fma) for n in (
+        _BWD, _DSTATE, _BWD.replace("I13__nv_bfloat16", "If"),
+        _DSTATE.replace("kernelIf", "kernelI13__nv_bfloat16")))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    assert smoke.bwd_fma_instructions(Path("lib.so")) == {
+        "ssd_bwd_chunk_kernel<bf16>": 2, "ssd_bwd_dstate_kernel<f32>": 2,
+        "ssd_bwd_chunk_kernel<f32>": 2, "ssd_bwd_dstate_kernel<bf16>": 2}
+    sass = _bwd_listing(_BWD, ["FMUL R1, R2, R3", "EXIT"])
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    with pytest.raises(RuntimeError, match="FFMA"):
+        smoke.bwd_fma_instructions(Path("lib.so"))
+
+
+def test_ssd_bwd_bound_at_the_training_shape():
+    """mamba2-1.3b's training scan: ~30.2 GFLOP (the triangles' four
+    products, four (q x n x p) products per head and chunk, C B^T once per
+    batch row) and 140.5 MB (x, b, c bf16; dt, a f32; dy f32 in and dx, db,
+    dc, ddt, da out): bytes-bound, 41.9 us at 3.35 TB/s."""
+    import torch
+
+    smoke = _smoke()
+    b, t, h, p, n, q = 4, 1024, 64, 64, 128, 128
+    tri = q * (q + 1) // 2
+    assert smoke.ssd_bwd_flops(b, h, t, q, n, p) == (t // q) * (
+        b * 2 * tri * n + b * h * (2 * 2 * tri * p + 2 * 2 * tri * n + 4 * 2 * q * n * p))
+    x = torch.empty((b, t, h, p), dtype=torch.bfloat16)
+    bc = torch.empty((b, t, n), dtype=torch.bfloat16)
+    dt, a = torch.empty((b, t, h)), torch.empty(h)
+    dy = torch.empty((b, t, h, p))
+    nbytes = smoke.ssd_bwd_bytes((x, dt, a, bc, bc, None, dy, None))
+    assert nbytes == 2 * (2 * x.numel() + 4 * dt.numel() + 4 * h + 2 * 2 * bc.numel()) \
+        + 4 * dy.numel() == 140_509_696
+    assert nbytes / smoke.HBM_BYTES_PER_S > smoke.ssd_bwd_flops(b, h, t, q, n, p) \
+        / smoke.BF16_TENSOR_FLOP_PER_S
+
+
+def test_training_phases_rehearse_on_the_cpu():
+    """``mamba2_train`` (its argv at smoke size), ``mamba2_grad_check``,
+    ``train_ckpt`` (both runs: the restart recomputes its losses, the second
+    restore reads degraded) and ``train_families`` on the CPU."""
+    from repro_torch.models.config import smoke as smoke_cfg
+
+    smoke = _smoke()
+    argv = ["--arch", "mamba2-1.3b", "--steps", "3", "--global-batch", "2", "--seq-len", "20",
+            "--ckpt-every", "5"]
+    ph = smoke.Phase("mamba2_train")
+    smoke.mamba2_train(ph, "cpu", dict(smoke.TRAIN, steps=3), argv)
+    assert len(ph.info["losses"]) == 3 and ph.info["tokens_per_step"] == 40
+    assert ph.info["trained_tok_s"] > 0 and ph.info["params"] > 0
+    ph = smoke.Phase("mamba2_grad_check")
+    smoke.mamba2_grad_check(ph, "cpu", smoke_cfg, dict(layers=2, batch=2, seq_len=25))
+    assert ph.info["leaves"] == 16 and ph.info["worst_rel_err"] == 0.0
+    ph = smoke.Phase("train_ckpt")
+    smoke.train_ckpt(ph, "cpu")
+    assert ph.info["default"]["engine"]["degraded_reads"] == 0  # the lane was rebuilt first
+    assert ph.info["degraded_restore"]["engine"]["degraded_reads"] > 0
+    for run in ph.info.values():
+        assert len(run["losses"]) == 22 and run["recomputed"] == run["losses"][10:12]
+    ph = smoke.Phase("train_families")
+    smoke.train_families(ph, "cpu")
+    assert len(ph.info["archs"]) == 10
