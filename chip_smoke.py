@@ -109,8 +109,10 @@ failing on the first error:
    state's gradient, t < chunk, an unaligned view, the rows layout and a
    ragged T through ``ssd_chunked``, each call twice and bit-equal; times
    it at mamba2's training shape beside its bound and plain version (both
-   on CUDA events, the profiler's sum beside), and checks that its GEMM
-   kernels' SASS holds the FFMA it was built on.  ``mamba2_train``
+   on CUDA events, the profiler's sum beside) and at zamba2-2.7b's
+   (``hybrid_shape``), each with the FLOPs it issues on the tensor cores
+   and its share of the bound, and checks that the SASS of its three
+   product kernels holds tensor-core (HMMA) instructions.  ``mamba2_train``
    trains mamba2-1.3b at full width (``TRAIN``) through
    ``launch.train.run``: step wall time, trained tokens/s, peak memory,
    finite losses and gradient norms, the SSD kernels' launches per step
@@ -1198,22 +1200,51 @@ def ssd_bwd_bytes(args) -> int:
     return ins + outs
 
 
-def bwd_fma_instructions(library: Path) -> dict[str, int]:
-    """FFMA instructions in the SASS of each instance of the backward's two
-    GEMM kernels (built for f32 FMA on the CUDA cores); raises if one has
-    none."""
+def ssd_bwd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int, groups: int,
+                         f32: bool = False) -> int:
+    """FLOPs the backward's kernels issue on the tensor cores, as m16n8k16
+    products of 4,096 FLOP (split halves and padding included; ``f32``: x,
+    b, c split too).  The state pass: per row, 32-column slice of p and
+    chunk, (C o e^s)^T dY over (n/16) x (q/16) tiles and 4 columns of 8,
+    three products each.  The per-chunk kernel: G^T's triangle once per
+    block (batch, chunk, head group); per head the triangle's (dY X^T)^T
+    (two products, three with f32 x) and (L o G)^T dY (three), and B dH'
+    (two, three) over (q/16) x (n/16), ``groups`` blocks per (batch, chunk).
+    The db/dc pass: per (batch, chunk,
+    32 columns of n) and head, dY H^T (three) and X dH'^T (two, three); then
+    (sum dG) B and (sum dG)^T C (two each, three with f32 b, c)."""
+    q = min(chunk, t)
+    nc, qt, nt, pt = t // q, -(-q // 16), -(-n // 16), -(-p // 16)
+    tri, pslices, nslices = qt * (qt + 1) // 2, -(-p // 32), -(-n // 32)
+    x2, k3 = (3 if f32 else 2), (3 if f32 else 1)
+    dstate = nb * nh * pslices * nc * nt * qt * 4 * 3
+    gram_t = nb * nc * groups * tri * nt * 2 * k3
+    per_head = tri * pt * 2 * (x2 + 3) + qt * nt * pt * 2 * x2
+    dbc = nb * nc * nslices * (nh * qt * 4 * pt * (3 + x2) + qt * 4 * qt * (4 + (2 if f32 else 0)))
+    return 4096 * (dstate + gram_t + nb * nh * nc * per_head + dbc)
+
+
+def bwd_tensor_core_instructions(library: Path) -> dict[str, int]:
+    """HMMA/HGMMA instructions in the SASS of each instance of the
+    backward's three product kernels (the state pass, the per-chunk
+    gradients, db and dc); raises if one has none, as
+    ``tensor_core_instructions`` does for the forward."""
     import re
 
     out = {}
     for body in _sass(library).split("Function : ")[1:]:
         name = body.split(None, 1)[0]
-        kernel = re.search(r"(ssd_bwd_chunk_kernel|ssd_bwd_dstate_kernel)I(\w+?)EEv", name)
+        kernel = re.search(
+            r"(ssd_bwd_dstate_kernel|ssd_bwd_chunk_kernel|ssd_bwd_dbc_kernel)I(\w+?)Lb([01])E",
+            name)
         if kernel is None:
             continue
-        key = f"{kernel[1]}<{'bf16' if 'bfloat16' in kernel[2] else 'f32'}>"
-        out[key] = len(re.findall(r"\bFFMA\b", body))
-    if len(out) != 4 or not all(out.values()):
-        raise RuntimeError(f"SSD backward kernels without FFMA in their SASS: {out}")
+        key = f"{kernel[1]}<{'bf16' if 'bfloat16' in kernel[2] else 'f32'}," \
+              f"{'async' if kernel[3] == '1' else 'scalar'}>"
+        out[key] = len(re.findall(r"\bH(?:G)?MMA\.", body))
+    if len(out) != 9 or not all(out.values()):
+        raise RuntimeError(f"SSD backward kernels without tensor-core instructions in their "
+                           f"SASS: {out}")
     return out
 
 
@@ -1223,9 +1254,9 @@ def ssd_grad_checks(library: Path) -> dict:
     and f32, with and without h0 and the final state's gradient, t < chunk,
     an unaligned view, the rows layout (a, b, c per row), and a ragged T
     through ``ssd_chunked`` (the model's call, padding and slice included);
-    each twice, bit-equal.  Times it at
-    mamba2's training shape beside its bound and plain version.  Returns the
-    kernel's row."""
+    each twice, bit-equal.  Times it at mamba2's training shape beside its
+    bound and plain version, and at zamba2's (``hybrid_shape``).  Returns
+    the kernel's row."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1314,40 +1345,54 @@ def ssd_grad_checks(library: Path) -> dict:
             grads.append([v.grad.to("cuda") for v in ins])
         hold(f"ssd_chunked t=250 {dtype}", dtype, *grads)
 
-    # timed at mamba2-1.3b's training shape (bf16, no h0, no final-state
-    # gradient, as the loss gives it)
-    timed = heads(bf16, nb, t, *main)
-    copies = []
-    for args in (timed, heads(bf16, nb, t, *main)):
-        copies.append((*args, ssd.ssd_scan_states(*args[:6], chunk=chunk)[2]))
-    # Its time is the CUDA-event time of 10 calls back to back: the host
-    # queues a call's three kernels in tens of µs while the card takes
-    # milliseconds, so the events time the card.  The profiler's sum is
-    # printed beside it; on the card's machine it has dropped kernel events
-    # of a window (a sum 2 ms short of the events' 6 ms in one run).
-    profiler_ms, ms = _time_ms(
-        lambda *a: ssd.ssd_scan_bwd(*a[:8], chunk=chunk, hprev=a[8]), copies, 10)
-    # the plain version on CUDA events alone: profiling its ~10^5 small
-    # kernels per call has cost the profiler events of later windows
-    plain_ms = _event_ms(lambda *a: ssd.ssd_scan_bwd_plain(*a[:8], chunk=chunk), copies, 2)
-    flops = ssd_bwd_flops(nb, main[0], t, chunk, main[2], main[1])
-    nbytes = ssd_bwd_bytes(timed)
-    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+    def timing(shape, plain: bool) -> dict:
+        """The kernel at (nb, t) with ``shape`` = (heads, p, n), bf16, no h0
+        and no final-state gradient (as the loss gives it), on two copies in
+        turn.  Its time is the CUDA-event time of 10 calls back to back: the
+        host queues a call's six kernels in tens of µs while the card takes
+        hundreds, so the events time the card.  The profiler's sum is printed
+        beside it (it has dropped kernel events of a window on the card's
+        machine).  The plain version on CUDA events alone: profiling its
+        ~10^5 small kernels per call has cost the profiler events of later
+        windows."""
+        timed = heads(bf16, nb, t, *shape)
+        copies = []
+        for args in (timed, heads(bf16, nb, t, *shape)):
+            copies.append((*args, ssd.ssd_scan_states(*args[:6], chunk=chunk)[2]))
+        profiler_ms, ms = _time_ms(
+            lambda *a: ssd.ssd_scan_bwd(*a[:8], chunk=chunk, hprev=a[8]), copies, 10)
+        plain_ms = _event_ms(lambda *a: ssd.ssd_scan_bwd_plain(*a[:8], chunk=chunk), copies,
+                             2) if plain else None
+        nh_, p_, n_ = shape
+        flops = ssd_bwd_flops(nb, nh_, t, chunk, n_, p_)
+        groups = ssd._head_groups(nb * (t // chunk), nh_, "cuda")[0]
+        tensor_flops = ssd_bwd_tensor_flops(nb, nh_, t, chunk, n_, p_, groups)
+        nbytes = ssd_bwd_bytes(timed)
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
+        return {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+            "ms_from": "CUDA events", "profiler_ms": profiler_ms,
+            "plain_ms_from": "CUDA events",
+            "shape": [list(v.shape) if v is not None else None for v in timed],
+            "bytes": nbytes, "flops": flops, "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms,
+            "bound_share": max(byte_ms, op_ms) / ms,
+            # what the kernels issue on the tensor cores (split halves and
+            # padding included), its time at the dense bf16 rate, and its rate
+            "tensor_flops": tensor_flops,
+            "tensor_us": 1e6 * tensor_flops / BF16_TENSOR_FLOP_PER_S,
+            "tensor_flop_per_s": tensor_flops / (ms * 1e-3),
+        }
+
     return {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/models/mamba2.py:71", "launches": 0,
         "max_abs_err": max_abs, "max_rel_err": max_rel, "worst_case": worst,
         "tol": SSD_GRAD_TOL, "cases": len(cases) + 2,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
-        "ms_from": "CUDA events", "profiler_ms": profiler_ms, "plain_ms_from": "CUDA events",
-        "shape": [list(v.shape) if v is not None else None for v in timed],
-        "bytes": nbytes, "flops": flops, "bytes_us": 1e3 * byte_ms, "ops_us": 1e3 * op_ms,
-        "bound_share": max(byte_ms, op_ms) / ms,
-        "f32_fma_flop_per_s": flops / (ms * 1e-3),
-        "ffma_instructions": bwd_fma_instructions(library),
+        **timing(main, plain=True), "hybrid_shape": timing(zam, plain=False),
+        "tensor_core_instructions": bwd_tensor_core_instructions(library),
     }
 
 

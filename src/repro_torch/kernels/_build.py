@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles each source to an object, all of them at once, and links
 the objects into one shared library with a plain C interface, for ``sm_90a``
-(Hopper), at first use.  The library lands in ``build/repro_torch/`` at the
-root of the checkout, named by a hash of the sources and flags, so an edit
+(Hopper), at first use (the SSD sources share ``csrc/ssd_common.cuh``).
+The library lands in ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the sources, the header and the flags, so an edit
 rebuilds and an unchanged tree reuses it.  It is loaded with ``ctypes``:
 pointers and the stream pass as ``c_void_p``, sizes as
 ``c_int``/``c_longlong``.
@@ -27,6 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu", CSRC / "ssd_scan_bwd.cu")
+HEADERS = (CSRC / "ssd_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,7 +54,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -124,7 +126,7 @@ def load() -> ctypes.CDLL:
             lib.ssd_chunk_gram.argtypes = [i, vp, vp, vp, i, i, i, i, vp, vp]
             lib.ssd_chunk_gram.restype = i
             lib.ssd_scan.restype = i
-            lib.ssd_scan_bwd.argtypes = [i, *[vp] * 18, *[i] * 8, vp, vp]
+            lib.ssd_scan_bwd.argtypes = [i, *[vp] * 21, *[i] * 10, vp, vp]
             lib.ssd_scan_bwd.restype = i
             _lib = lib
         return _lib

@@ -19,10 +19,12 @@
 // Two kernels.  ssd_chunk_gram_kernel computes G once per (batch, chunk) --
 // b and c are shared by the H heads of a batch row -- and writes its 16 x 16
 // tiles on and below the diagonal, f32, in the order the scan's threads read
-// them (1.2 MB at the main shape, read back from L2).  ssd_scan_kernel runs
-// one block per (batch, head, slice of kSlice = 32 columns of p), so no
-// block talks to another: p = 64 gives 512 blocks, 3.9 waves of one
-// 184 KB block per SM.  Each block loops over its chunks with h in
+// them (1.2 MB at the main shape, read back from L2).  It runs one warp per
+// tile, each staging its two 16-row bands of c and b (1,152 warps at the
+// main shape, spread over every SM; the bands several tiles share come
+// from L2).  ssd_scan_kernel runs one block per (batch, head, slice of
+// kSlice = 32 columns of p), so no block talks to another: p = 64 gives 512
+// blocks, 3.9 waves of one 184 KB block per SM.  Each block loops over its chunks with h in
 // registers (f32) from the first chunk to the last.
 //
 // Arithmetic.  Every product is mma.sync.m16n8k16 with bf16 operands and
@@ -69,16 +71,11 @@
 // computed once per (batch, chunk), not per head, and the zero tiles above
 // M's diagonal are skipped; the p-split gives 512 blocks instead of 256;
 // loads overlap compute, and y goes out in 16-byte stores.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <initializer_list>
-#include <type_traits>
+
+#include "ssd_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
@@ -86,7 +83,6 @@ constexpr int kMaxDim = 128;        // q, n, p limits: 8 tiles of 16 rows
 constexpr int kSlice = 32;          // p columns per block: four n8 tiles
 constexpr int kLdx = kSlice + 8;    // row of the x and h planes, in bf16 (padded)
 constexpr int kG = 2;               // G tiles in flight per y warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct SsdArgs {
   const void* x;
@@ -109,7 +105,6 @@ struct SsdArgs {
   long long sy_b, sy_h, sy_t;
 };
 
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
 __host__ __device__ inline int gram_tiles(int q) {
   const int qt = round16(q) / 16;
   return qt * (qt + 1) / 2;
@@ -134,161 +129,72 @@ struct Layout {
   }
 };
 
-// The G kernel's: the hi (and, for f32 inputs, lo) planes of c and b.
-__host__ __device__ inline long long gram_smem_bytes(int q, int n, int parts) {
-  return (long long)parts * 2 * 2 * round16(q) * (round16(n) + 8);
+// The G kernel: one warp per tile (i, j <= i) of one (batch, chunk), in
+// blocks of kGramWarps warps with no barrier between them.  A warp stages
+// the 16 rows of c of band i and of b of band j (the hi, and for f32 inputs
+// lo, planes) in its own shared memory: the bands that several tiles share
+// come from L2, and the chunk's 2 x 8 KB of loads spread over the card.
+constexpr int kGramWarps = 4;
+__host__ __device__ inline long long gram_smem_bytes(int n, int parts) {
+  return (long long)kGramWarps * parts * 2 * 2 * 16 * (round16(n) + 8);
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; `bytes` = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d += a b for one 16 x 8 x 16 tile: bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (v0, v1) as packed bf16 pairs hi + lo.
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// 2^x (ex2.approx: relative error ~2^-22; 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-// Rows [0, rows_pad) x columns [0, cols_pad) of a bf16 plane (row stride
-// ld) from `src` (row stride `stride`, contiguous columns); entries past
-// rows x cols are 0.  kCols >= cols_pad is a compile-time row width, so
-// that the thread -> (row, column) split is a shift.  kAsync: 16-byte
-// cp.async per 8 columns (cols is a multiple of 8).  Otherwise element
-// loads; an f32 value also writes its lo half into `lo`.
-template <typename T, bool kAsync, int kCols>
-__device__ __forceinline__ void load_tile(bf16* hi, bf16* lo, int ld, const T* src,
-                                          long long stride, int rows, int cols,
-                                          int rows_pad, int cols_pad, int tid, int nthr) {
-  if constexpr (kAsync) {
-    constexpr int kPer = kCols / 8;
-    for (int i = tid; i < rows_pad * kPer; i += nthr) {
-      const int r = i / kPer, c = (i % kPer) * 8;
-      if (c >= cols_pad) continue;
-      const bool ok = r < rows && c < cols;
-      cp_async16(hi + r * ld + c, ok ? src + r * stride + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < rows_pad * kCols; i += nthr) {
-      const int r = i / kCols, c = i % kCols;
-      if (c >= cols_pad) continue;
-      const float v = r < rows && c < cols ? to_f32(src[r * stride + c]) : 0.f;
-      const bf16 h = __float2bfloat16_rn(v);
-      hi[r * ld + c] = h;
-      if constexpr (std::is_same<T, float>::value)
-        lo[r * ld + c] = __float2bfloat16_rn(v - __bfloat162float(h));
-    }
-  }
-}
-
-// One block per (batch, chunk): the tiles of G = C B^T on and below the
-// diagonal, each warp a tile at a time.  Lane l of a tile stores its two
-// m16n8 accumulators, (row g, cols 2t, 2t+1), (row g+8, ...) for columns
-// 0-7 then 8-15, as 8 consecutive floats.
+// Lane l of a tile stores its two m16n8 accumulators, (row g, cols 2t,
+// 2t+1), (row g+8, ...) for columns 0-7 then 8-15, as 8 consecutive floats.
 template <typename T, bool kAsync>
-__global__ void __launch_bounds__(kThreads) ssd_chunk_gram_kernel(const SsdArgs args) {
+__global__ void __launch_bounds__(32 * kGramWarps) ssd_chunk_gram_kernel(const SsdArgs args,
+                                                                        int chunks) {
   constexpr int kIn = std::is_same<T, float>::value ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int q = args.q, n = args.n, nc = args.t / args.q;
-  const int q16 = round16(q), n16 = round16(n), ldn = n16 + 8, nt = n16 / 16;
-  const int bi = blockIdx.x / nc, ci = blockIdx.x % nc;
+  const int n16 = round16(n), ldn = n16 + 8, nt = n16 / 16, tiles = gram_tiles(q);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* cs = reinterpret_cast<bf16*>(smem);  // plane k of c at cs + 2k*q16*ldn, of b after it
-  const long long plane = (long long)q16 * ldn;
+  const long long item = (long long)blockIdx.x * kGramWarps + warp;
+  if (item >= (long long)chunks * tiles) return;
+  const int chunk = (int)(item / tiles), tile = (int)(item % tiles);
+  int i = 0;
+  while ((i + 1) * (i + 2) / 2 <= tile) ++i;
+  const int j = tile - i * (i + 1) / 2;
+  const int bi = chunk / nc, ci = chunk % nc;
+  const long long plane = 16LL * ldn;
+  bf16* cp = reinterpret_cast<bf16*>(smem) + (long long)warp * kIn * 2 * plane;  // c hi, b hi, c lo, b lo
   const long long t0 = (long long)ci * q;
-  load_tile<T, kAsync, kMaxDim>(cs, cs + 2 * plane, ldn,
-                       static_cast<const T*>(args.c) + bi * args.sc_b + t0 * args.sc_t,
-                       args.sc_t, q, n, q16, n16, threadIdx.x, kThreads);
-  load_tile<T, kAsync, kMaxDim>(cs + plane, cs + 3 * plane, ldn,
-                       static_cast<const T*>(args.b) + bi * args.sb_b + t0 * args.sb_t,
-                       args.sb_t, q, n, q16, n16, threadIdx.x, kThreads);
+  load_tile<T, kAsync, kMaxDim>(
+      cp, cp + 2 * plane, ldn,
+      static_cast<const T*>(args.c) + bi * args.sc_b + (t0 + 16 * i) * args.sc_t, args.sc_t,
+      min(16, q - 16 * i), n, 16, n16, lane, 32);
+  load_tile<T, kAsync, kMaxDim>(
+      cp + plane, cp + 3 * plane, ldn,
+      static_cast<const T*>(args.b) + bi * args.sb_b + (t0 + 16 * j) * args.sb_t, args.sb_t,
+      min(16, q - 16 * j), n, 16, n16, lane, 32);
   if constexpr (kAsync) {
     cp_async_commit();
     cp_async_wait<0>();
   }
-  __syncthreads();
+  __syncwarp();
 
-  const int ntiles = gram_tiles(q);
-  float* out = args.gram + (long long)blockIdx.x * ntiles * 256;
-  for (int tile = warp; tile < ntiles; tile += kWarps) {
-    int i = 0;
-    while ((i + 1) * (i + 2) / 2 <= tile) ++i;
-    const int j = tile - i * (i + 1) / 2;
-    float acc[2][4] = {};
-    for (int kt = 0; kt < nt; ++kt) {
-      uint32_t ca[kIn][4], bb[kIn][4];
+  float acc[2][4] = {};
+#pragma unroll 4
+  for (int kt = 0; kt < nt; ++kt) {
+    uint32_t ca[kIn][4], bb[kIn][4];
 #pragma unroll
-      for (int k = 0; k < kIn; ++k) {
-        ldsm_x4(ca[k], cs + 2 * k * plane + (16 * i + (lane & 15)) * ldn + 16 * kt +
-                           (lane >> 4) * 8);
-        ldsm_x4(bb[k], cs + (2 * k + 1) * plane +
-                           (16 * j + (lane & 7) + (lane >> 4) * 8) * ldn + 16 * kt +
-                           ((lane >> 3) & 1) * 8);
-      }
+    for (int k = 0; k < kIn; ++k) {
+      ldsm_x4(ca[k], cp + 2 * k * plane + (lane & 15) * ldn + 16 * kt + (lane >> 4) * 8);
+      ldsm_x4(bb[k], cp + (2 * k + 1) * plane + ((lane & 7) + (lane >> 4) * 8) * ldn + 16 * kt +
+                         ((lane >> 3) & 1) * 8);
+    }
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        mma(acc[h2], ca[0], bb[0][2 * h2], bb[0][2 * h2 + 1]);
-        if constexpr (kIn == 2) {
-          mma(acc[h2], ca[0], bb[1][2 * h2], bb[1][2 * h2 + 1]);
-          mma(acc[h2], ca[1], bb[0][2 * h2], bb[0][2 * h2 + 1]);
-        }
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mma(acc[h2], ca[0], bb[0][2 * h2], bb[0][2 * h2 + 1]);
+      if constexpr (kIn == 2) {
+        mma(acc[h2], ca[0], bb[1][2 * h2], bb[1][2 * h2 + 1]);
+        mma(acc[h2], ca[1], bb[0][2 * h2], bb[0][2 * h2 + 1]);
       }
     }
-    float4* dst = reinterpret_cast<float4*>(out + ((long long)tile * 32 + lane) * 8);
-    dst[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-    dst[1] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
   }
+  float4* dst = reinterpret_cast<float4*>(args.gram + ((item * 32) + lane) * 8);
+  dst[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+  dst[1] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
 }
 
 // One block per (batch, head, p-slice); see the header.
@@ -666,11 +572,13 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs arg
 template <typename T, bool kAsync>
 int launch(const SsdArgs& args, int nb, int rows, cudaStream_t st) {
   const int nc = args.t / args.q;
-  const size_t gsmem = (size_t)gram_smem_bytes(args.q, args.n, std::is_same<T, float>::value ? 2 : 1);
+  const size_t gsmem = (size_t)gram_smem_bytes(args.n, std::is_same<T, float>::value ? 2 : 1);
   cudaError_t err = cudaFuncSetAttribute(ssd_chunk_gram_kernel<T, kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem);
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_gram_kernel<T, kAsync><<<nb * nc, kThreads, gsmem, st>>>(args);
+  const long long warps = (long long)nb * nc * gram_tiles(args.q);
+  ssd_chunk_gram_kernel<T, kAsync>
+      <<<(int)((warps + kGramWarps - 1) / kGramWarps), 32 * kGramWarps, gsmem, st>>>(args, nb * nc);
   if ((err = cudaGetLastError()) != cudaSuccess || rows == 0) return (int)err;
   const size_t smem = (size_t)Layout(args.q, args.n).total;
   err = cudaFuncSetAttribute(ssd_scan_kernel<T, kAsync>,

@@ -29,15 +29,18 @@ on the card its forward is the same kernel, also writing the state that
 enters each chunk (``hprev``, (B, T/q, H, N, P) f32, the reference's
 ``h_prev``), and its backward launches ``csrc/ssd_scan_bwd.cu``
 (:func:`ssd_scan_bwd`): dx, ddt, da, db, dc and dh0 from dy and the final
-state's gradient, b's and c's summed over the heads in a fixed order, so the
-same inputs give the same bits.  On the CPU its forward is the plain
-version and its backward autograd through it (:func:`ssd_scan_bwd_plain`),
-which is also what the tests and ``chip_smoke.py`` hold the kernel to.
+state's gradient on the tensor cores, b's and c's summed over the heads in
+registers in a fixed order, so the same inputs give the same bits (its
+per-chunk kernel stages (q, p) tiles: p <= 64, ``MAX_BWD_P``).  On the CPU
+its forward is the plain version and its backward autograd through it
+(:func:`ssd_scan_bwd_plain`), which is also what the tests and
+``chip_smoke.py`` hold the kernel to.
 
 ``LAUNCHES`` counts kernel launches: ``ssd_scan`` once per scan and
 ``ssd_chunk_gram`` once per scan or ``chunk_gram`` call; ``ssd_scan_bwd``
-once per backward call (its three kernels: the state gradients chunk by
-chunk, the per-chunk gradients, the fixed-order sums).
+once per backward call (its six kernels: the chunk scans, the state
+gradients chunk by chunk, the per-chunk gradients of each group of heads, db
+and dc, ds's reverse cumsum, da).
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ DEFAULT_CHUNK = 128
 # q, n and p limits of the kernels; at q = n = 128 the scan's block takes
 # 184,320 bytes of shared memory, inside a Hopper block's 232,448.
 MAX_DIM = 128
+# p limit of the backward kernel, whose per-chunk blocks hold a head's x, dy
+# and dH' tiles in shared memory beside G and dG.
+MAX_BWD_P = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"ssd_scan": 0, "ssd_chunk_gram": 0, "ssd_scan_bwd": 0}
@@ -261,6 +267,8 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, *, chunk: int = DEFAULT_CHUNK, hpre
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
     _check_kernel_operands(x, b, c, h0, q, n, p)
+    if p > MAX_BWD_P:
+        raise ValueError(f"ssd_scan_bwd: the CUDA kernel takes p <= {MAX_BWD_P}, got p={p}")
     rows = x.ndim == 3
     y_shape = (nb, t, p) if rows else (nb, t, nh, p)
     h_shape = (nb, n, p) if rows else (nb, nh, n, p)
@@ -275,14 +283,19 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, *, chunk: int = DEFAULT_CHUNK, hpre
     dev, f32 = x.device, torch.float32
     dy = dy.to(f32).contiguous()
     dh = None if dh is None else dh.to(f32).contiguous()
-    nrows = nb * nh
+    nrows, nc = nb * nh, t // q
+    groups, hg = _head_groups(nb * nc, nh, dev)
+    nslices, qt = -(-n // 32), -(-q // 16)
     dstate = torch.empty_like(hprev)
     dx = torch.empty(y_shape, dtype=x.dtype, device=dev)
     ddt = torch.empty(dt.shape, dtype=f32, device=dev)
     dh0 = torch.empty(h_shape, dtype=f32, device=dev) if h0 is not None else None
-    dbp = torch.empty((nrows, t, n), dtype=f32, device=dev)
-    dcp = torch.empty_like(dbp)
-    dap = torch.empty((nrows, t // q), dtype=f32, device=dev)
+    sv = torch.empty((5, nrows, t), dtype=f32, device=dev)
+    dsp = torch.empty((3, nrows, t), dtype=f32, device=dev)
+    qvp = torch.empty((nrows, 2 * nslices, t), dtype=f32, device=dev)
+    hsp = torch.empty((nrows, nc, nslices, 16), dtype=f32, device=dev)
+    dgp = torch.empty((nb, nc, groups, qt * (qt + 1) // 2, 256), dtype=f32, device=dev)
+    dap = torch.empty((nrows, nc), dtype=f32, device=dev)
     db = torch.empty((nb, t, n), dtype=x.dtype, device=dev)
     dc = torch.empty_like(db)
     da = torch.empty(a.shape, dtype=f32, device=dev)
@@ -291,13 +304,23 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, *, chunk: int = DEFAULT_CHUNK, hpre
         b.stride(0), b.stride(1), c.stride(0), c.stride(1),
         *_strides3(dy, rows), *_strides3(dx, rows), *_strides3(ddt, rows))
     ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
-    _build.launch("ssd_scan_bwd", _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                  b.data_ptr(), c.data_ptr(), dy.data_ptr(), ptr(dh), hprev.data_ptr(),
-                  dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), ptr(dh0), dbp.data_ptr(),
-                  dcp.data_ptr(), dap.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-                  nrows, nh, t, q, n, p, int(rows), a.shape[0], strides)
+    _build.launch("ssd_scan_bwd", _DTYPES[x.dtype],
+                  *(ptr(v) for v in (x, dt, a, b, c, dy, dh, hprev, dstate, dx, ddt, dh0, sv,
+                                     dsp, qvp, hsp, dgp, dap, db, dc, da)),
+                  nrows, nh, t, q, n, p, int(rows), a.shape[0], groups, hg, strides)
     LAUNCHES["ssd_scan_bwd"] += 1
     return dx, ddt, da, db, dc, dh0
+
+
+def _head_groups(chunks: int, nh: int, device) -> tuple[int, int]:
+    """(groups, heads per group) of the backward's per-chunk kernel: about
+    one block per SM over the (batch, chunk) pairs, each block looping over
+    its group's heads (mamba2-1.3b's training shape on 132 SMs: 4 groups of
+    16 heads, 128 blocks)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = max(1, min(nh, sms // max(1, chunks)))
+    hg = -(-nh // groups)
+    return -(-nh // hg), hg
 
 
 class SSDScanFn(torch.autograd.Function):

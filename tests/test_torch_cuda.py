@@ -301,20 +301,24 @@ def test_ssd_scan_unaligned_views_take_the_scalar_path(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_gram_matches_plain_version(cuda, dtype):
-    """G = C B^T per chunk, alone, in the scan kernel's tile order.  bf16
-    products are exact and only the summation order differs (1e-5); f32
-    inputs go in as hi + lo bf16 halves, ~16 bits each (1e-3)."""
+    """G = C B^T per chunk, alone, in the scan kernel's tile order, at n = 48
+    and zamba2's n = 64, and at t < chunk.  bf16 products are exact and only
+    the summation order differs (1e-5); f32 inputs go in as hi + lo bf16
+    halves, ~16 bits each (1e-3); every call equals its repeat."""
     rng = np.random.default_rng(2)
-    _, b, c = _conv_views(rng, cuda, dtype, 2, 200, 1, 8, 48)
-    for chunk in (128, 100, 40):
+    for t, n, chunk in ((200, 48, 128), (200, 48, 100), (200, 48, 40), (256, 64, 128),
+                        (64, 64, 128)):
+        _, b, c = _conv_views(rng, cuda, dtype, 2, t, 1, 8, n)
+        q = min(chunk, t)
+        b, c = b[:, :t // q * q], c[:, :t // q * q]
         reset_launch_counts()
-        got = ssd.chunk_gram(b[:, :200 // chunk * chunk], c[:, :200 // chunk * chunk],
-                             chunk=chunk)
-        want = ref.ssd_chunk_gram_ref(b[:, :200 // chunk * chunk],
-                                      c[:, :200 // chunk * chunk], chunk)
+        got = ssd.chunk_gram(b, c, chunk=chunk)
+        again = ssd.chunk_gram(b, c, chunk=chunk)
+        want = ref.ssd_chunk_gram_ref(b, c, q)
         tol = 1e-3 if dtype == torch.float32 else 1e-5
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-        assert launch_counts()["ssd_chunk_gram"] == 1
+        assert torch.equal(got, again), (t, n, chunk)
+        assert launch_counts()["ssd_chunk_gram"] == 2
 
 
 def test_ssd_scan_refuses_what_it_cannot_take(cuda):
@@ -509,12 +513,31 @@ def _ssd_heads(seed, bsz, t, nh, p, n, dtype, h0, dh, device):
 SSD_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def _ssd_rows(seed, bh, t, p, n, dtype, h0, dh, device):
+    """(x, dt, a, b, c, h0, dy, dh) in the rows layout: a, b and c per row."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    return (f(bh, t, p).to(device, dtype),
+            torch.from_numpy(rng.uniform(0.01, 0.3, (bh, t)).astype(np.float32)).to(device),
+            torch.from_numpy(-rng.uniform(0.5, 2.0, (bh,)).astype(np.float32)).to(device),
+            f(bh, t, n).to(device, dtype), f(bh, t, n).to(device, dtype),
+            f(bh, n, p).to(device) if h0 else None, f(bh, t, p).to(device),
+            f(bh, n, p).to(device) if dh else None)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,q,h0,dh", [
     ((2, 64, 4, 64, 128), 32, True, True), ((2, 100, 3, 16, 16), 128, False, True),
-    ((1, 256, 2, 64, 64), 128, True, False), ((3, 48, 2, 8, 16), 16, False, False)])
+    ((1, 256, 2, 64, 64), 128, True, False), ((3, 48, 2, 8, 16), 16, False, False),
+    # mamba2-1.3b's 64 heads (4 groups of 16 on 132 SMs) at a short t
+    ((2, 128, 64, 64, 128), 128, True, True),
+    # zamba2-2.7b's 80 heads at n = 64
+    ((1, 256, 80, 64, 64), 128, False, True),
+    # the rows layout (bh, t, p, n): a, b and c per row, one head each
+    ((3, 64, 8, 16), 16, True, True)])
 def test_ssd_scan_bwd_matches_plain(cuda, dtype, shape, q, h0, dh):
-    args = _ssd_heads(sum(shape), *shape, dtype, h0, dh, cuda)
+    make = _ssd_rows if len(shape) == 4 else _ssd_heads
+    args = make(sum(shape), *shape, dtype, h0, dh, cuda)
     reset_launch_counts()
     got = ssd.ssd_scan_bwd(*args, chunk=q)
     again = ssd.ssd_scan_bwd(*args, chunk=q)

@@ -422,8 +422,9 @@ def test_serving_sizes_match_the_published_shapes():
 
 # ------------------------------------------------------------------- training
 
-_BWD = "48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_b591142620ssd_bwd_chunk_kernelI13__nv_bfloat16"
-_DSTATE = "48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_b591142621ssd_bwd_dstate_kernelIf"
+_BWD_NS = "48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_b5911426"
+_BWD = _BWD_NS + "20ssd_bwd_chunk_kernelI13__nv_bfloat16Lb1E"
+_DSTATE = _BWD_NS + "21ssd_bwd_dstate_kernelIfLb0E"
 
 
 def _bwd_listing(name, body):
@@ -433,20 +434,49 @@ def _bwd_listing(name, body):
 
 
 def test_bwd_fma_instructions_count_ffma(monkeypatch):
+    """The backward's SASS check (it held the FFMA of the CUDA-core kernels
+    this check replaced): HMMA/HGMMA instructions of each instance of its
+    three product kernels, raising if one has none."""
     smoke = _smoke()
     monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
-    fma = ["FFMA R1, R2, R3, R1", "FFMA R4, R2, R5, R4", "EXIT"]
-    sass = "".join(_bwd_listing(n, fma) for n in (
-        _BWD, _DSTATE, _BWD.replace("I13__nv_bfloat16", "If"),
-        _DSTATE.replace("kernelIf", "kernelI13__nv_bfloat16")))
+    hmma = ["LDSM.16.M88.4 R4, [R2]", "HMMA.16816.F32.BF16 R8, R4, R12, R8",
+            "HMMA.16816.F32.BF16 R16, R4, R14, R16", "EXIT"]
+    names = [_BWD_NS + f"{len(k)}{k}I{t}Lb{a}E"
+             for k in ("ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_dbc_kernel")
+             for t, a in (("f", 0), ("13__nv_bfloat16", 0), ("13__nv_bfloat16", 1))]
+    sass = "".join(_bwd_listing(n, hmma) for n in names)
     monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
-    assert smoke.bwd_fma_instructions(Path("lib.so")) == {
-        "ssd_bwd_chunk_kernel<bf16>": 2, "ssd_bwd_dstate_kernel<f32>": 2,
-        "ssd_bwd_chunk_kernel<f32>": 2, "ssd_bwd_dstate_kernel<bf16>": 2}
-    sass = _bwd_listing(_BWD, ["FMUL R1, R2, R3", "EXIT"])
+    got = smoke.bwd_tensor_core_instructions(Path("lib.so"))
+    assert len(got) == 9 and set(got.values()) == {2}
+    assert got["ssd_bwd_chunk_kernel<bf16,async>"] == 2
+    assert got["ssd_bwd_dstate_kernel<f32,scalar>"] == 2
+    # an instance on the CUDA cores alone fails the check
+    sass = "".join(_bwd_listing(n, hmma if n != names[4] else ["FFMA R1, R2, R3, R1", "EXIT"])
+                   for n in names)
     monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=sass))
-    with pytest.raises(RuntimeError, match="FFMA"):
-        smoke.bwd_fma_instructions(Path("lib.so"))
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        smoke.bwd_tensor_core_instructions(Path("lib.so"))
+
+
+def test_ssd_bwd_tensor_flops_at_the_training_shape():
+    """The products the backward issues at mamba2-1.3b's training shape (4
+    groups of 16 heads): the state pass 12 products per (row, p-slice,
+    chunk, state tile, time tile); G^T's 36-tile triangle per block; per
+    head 36 tiles x 4 p-tiles x 2 x (2 + 3) and 8 x 8 x 4 x 2 x 2 for B dH';
+    the db/dc pass 8 x 4 x 4 x 5 per (batch, chunk, n-slice, head) and 8 x
+    4 x 8 x 4 at its end -- 55.9 GFLOP, ~1.85x the 30.2 the function needs."""
+    smoke = _smoke()
+    b, t, h, p, n, q = 4, 1024, 64, 64, 128, 128
+    nc, mma = t // q, 4096
+    dstate = b * h * 2 * nc * 8 * 8 * 12
+    gram_t = b * nc * 4 * 36 * 8 * 2
+    per_head = 36 * 4 * 2 * 5 + 8 * 8 * 4 * 2 * 2
+    dbc = b * nc * 4 * (h * 8 * 4 * 4 * 5 + 8 * 4 * 8 * 4)
+    want = mma * (dstate + gram_t + b * h * nc * per_head + dbc)
+    assert smoke.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4) == want == 55_868_129_280
+    assert want / smoke.ssd_bwd_flops(b, h, t, q, n, p) == pytest.approx(1.848, abs=1e-3)
+    # f32 inputs split x, b and c too: more products, never fewer
+    assert smoke.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4, f32=True) > want
 
 
 def test_ssd_bwd_bound_at_the_training_shape():

@@ -11,10 +11,16 @@ scan.  Here, on the CPU:
   each gradient's largest value (``ssd_chunked``'s forward tolerance in
   ``tests/test_kernels.py``: chunked against sequential sums), with a
   ragged T (dt = 0 padding and the slice back), t < chunk and h0;
-* ``emulate_ssd_bwd`` repeats the backward kernel's algebra (the state
-  gradient pass, the per-chunk gradients, the fixed-order sums over heads)
-  in f64 torch and holds it to autograd at 1e-5 of each gradient's largest
-  value, so the kernel's formulas are tested where it cannot run;
+* ``emulate_ssd_bwd`` repeats the backward kernels' decomposition (the
+  state pass with its qv and sum(H o dH') terms, G^T once per (batch,
+  chunk), dG summed per group of heads, db and dc as head-ordered products
+  plus the summed dG times B and C) in f64 torch and holds it to autograd
+  at 1e-5 of each gradient's largest value, with head counts the group
+  does and does not divide, so the kernels' formulas are tested where they
+  cannot run;
+* the same decomposition in the kernels' arithmetic (f32 operands of every
+  tensor-core product as bf16 hi + lo halves) is held to ``jax.grad`` of
+  the reference at the card's tolerance (1e-4 f32, 1e-2 bf16);
 * the Function's plumbing: None gradients count as zeros, no h0 gives no
   dh0, a scan without grad launches nothing new.
 
@@ -80,66 +86,150 @@ def test_grad_matches_jax_grad_of_reference(t, chunk, with_h0):
         assert err <= JAX_TOL, (k, err)
 
 
-def emulate_ssd_bwd(x, dt, a, b, c, h0, dy, dh, q):
-    """The backward kernel's algebra in f64 torch, heads layout: the states
-    entering each chunk (the forward kernel's ``hprev``), the state
-    gradients chunk by chunk from the last (``ssd_bwd_dstate_kernel``), the
-    per-(row, chunk) gradients (``ssd_bwd_chunk_kernel``) and the sums over
-    heads and batch rows (``ssd_bwd_reduce_kernel``)."""
+EMU_HEAD_GROUP = 2  # heads per group of the per-chunk kernel in the emulations
+
+
+def _splits(v, split):
+    """v as the kernels feed it to the tensor cores: bf16 hi + lo halves
+    (``split``) or one bf16 value (an input already in bf16)."""
+    hi = v.to(torch.bfloat16).float()
+    return (hi, (v - hi).to(torch.bfloat16).float()) if split else (hi, None)
+
+
+def _mm_split(a, b, split_a, split_b):
+    """a @ b as m16n8k16 products of split operands: hi x hi, lo x hi and
+    hi x lo, each bf16 x bf16 product exact in f32, f32 sums; lo x lo
+    dropped."""
+    ah, al = _splits(a, split_a)
+    bh, bl = _splits(b, split_b)
+    out = ah @ bh
+    if al is not None:
+        out = out + al @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    return out
+
+
+def emulate_ssd_bwd(x, dt, a, b, c, h0, dy, dh, q, hg=EMU_HEAD_GROUP, split=None):
+    """The backward kernels' decomposition, heads layout.  ``split=None``:
+    f64 arithmetic (the algebra).  ``split="float32"`` or ``"bfloat16"``:
+    f32 arithmetic with every product on split bf16 operands as the kernels
+    run it (inputs x, b, c in that type: bf16 goes in as it is, f32 split),
+    dx, db, dc rounded to it at the end.
+
+    * the states entering each chunk (the forward kernel's ``hprev``);
+    * ``ssd_bwd_dstate_kernel``: dH' chunk by chunk from the last;
+    * ``ssd_bwd_chunk_kernel``: G^T = B C^T once per (batch, chunk); per
+      group of ``hg`` heads in order, each head's dx, its parts of ds and
+      ddt, and dG summed over the group;
+    * ``ssd_bwd_dbc_kernel``: per head dY H^T and X dH'^T, scaled by e^s
+      and w after the product and summed over heads in order, plus (sum
+      dG) B and (sum dG)^T C; qv = e^s o rowsum(C o dY H^T) and sum(H o
+      dH') on the way;
+    * ``ssd_bwd_tail_kernel``: ds, its reverse cumsum, ddt and da."""
     bsz, t, nh, p = x.shape
     n, nc = b.shape[-1], t // q
-    x, dt, a, b, c, dy = (v.double() for v in (x, dt, a, b, c, dy))
-    neg_inf = torch.tensor(-float("inf"), dtype=torch.float64)
+    ft = torch.float64 if split is None else torch.float32
+    in_split = split == "float32"
+
+    def mm(u, v, su, sv):  # su, sv: whether the kernel splits that operand
+        return u @ v if split is None else _mm_split(u, v, su, sv)
+
+    x, dt, a, b, c, dy = (v.to(ft) for v in (x, dt, a, b, c, dy))
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    neg_inf = torch.tensor(-float("inf"), dtype=ft)
     chunks = [slice(ci * q, (ci + 1) * q) for ci in range(nc)]
 
-    def cums(sl):
-        return torch.cumsum(dt[:, sl] * a, 1)  # (B, q, H)
+    def scan(bi, hi, sl):
+        d = dt[bi, sl, hi]
+        s = torch.cumsum(d * a[hi], 0)
+        wl = torch.exp(s[-1] - s)
+        return d, s, torch.exp(s), wl, d * wl
 
-    hprev, st = [], torch.zeros(bsz, nh, n, p, dtype=torch.float64) \
-        if h0 is None else h0.double()
-    for sl in chunks:
-        hprev.append(st)
-        s = cums(sl)
-        w = dt[:, sl] * torch.exp(s[:, -1:] - s)
-        st = torch.exp(s[:, -1])[..., None, None] * st + \
-            torch.einsum("bjn,bjh,bjhp->bhnp", b[:, sl], w, x[:, sl])
-    dstate, dH = [None] * nc, torch.zeros(bsz, nh, n, p, dtype=torch.float64) \
-        if dh is None else dh.double()
-    for ci in reversed(range(nc)):
-        dstate[ci] = dH
-        s = cums(chunks[ci])
-        dH = torch.exp(s[:, -1])[..., None, None] * dH + \
-            torch.einsum("btn,bth,bthp->bhnp", c[:, chunks[ci]], torch.exp(s), dy[:, chunks[ci]])
-    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
-    dbp = torch.zeros(bsz, nh, t, n, dtype=torch.float64)
-    dcp, dap = torch.zeros_like(dbp), torch.zeros(bsz, nh, nc, dtype=torch.float64)
+    # the forward's chunk states, f64, as f32 in the split arithmetic
+    hprev = torch.zeros(bsz, nc, nh, n, p, dtype=torch.float64)
+    x64, dt64, a64, b64 = (v.double() for v in (x, dt, a, b))
     for bi in range(bsz):
         for hi in range(nh):
+            st = torch.zeros(n, p, dtype=torch.float64) if h0 is None else h0[bi, hi].double()
             for ci, sl in enumerate(chunks):
-                d = dt[bi, sl, hi]
-                s = torch.cumsum(d * a[hi], 0)
-                wl = torch.exp(s[-1] - s)
-                w = d * wl
-                lmat = torch.exp(torch.where(tri, s[:, None] - s[None, :], neg_inf))
-                lg = lmat * (c[bi, sl] @ b[bi, sl].T)
-                yx = torch.where(tri, dy[bi, sl, hi] @ x[bi, sl, hi].T, 0.0)
-                hm, dhn = hprev[ci][bi, hi], dstate[ci][bi, hi]
-                dx[bi, sl, hi] = d[:, None] * (lg.T @ dy[bi, sl, hi]) + \
-                    w[:, None] * (b[bi, sl] @ dhn)
-                dyh = torch.exp(s)[:, None] * (dy[bi, sl, hi] @ hm.T)
-                dg = lmat * d[None, :] * yx
-                dcp[bi, hi, sl] = dyh + dg @ b[bi, sl]
-                xdh = x[bi, sl, hi] @ dhn.T
-                t2 = (xdh * b[bi, sl]).sum(1)
-                dbp[bi, hi, sl] = w[:, None] * xdh + dg.T @ c[bi, sl]
-                ds = (lg * d[None, :] * yx).sum(1) - d * (lg * yx).sum(0) + \
-                    (dyh * c[bi, sl]).sum(1) - w * t2
-                ds[-1] += torch.exp(s[-1]) * (hm * dhn).sum() + (w * t2).sum()
-                dla = torch.flip(torch.cumsum(torch.flip(ds, [0]), 0), [0])
-                ddt[bi, sl, hi] = (lg * yx).sum(0) + wl * t2 + a[hi] * dla
-                dap[bi, hi, ci] = (dla * d).sum()
-    return dx, ddt, dap.sum((0, 2)), dbp.sum(1), dcp.sum(1), dH
+                hprev[bi, ci, hi] = st
+                s = torch.cumsum(dt64[bi, sl, hi] * a64[hi], 0)
+                w = dt64[bi, sl, hi] * torch.exp(s[-1] - s)
+                st = torch.exp(s[-1]) * st + (b64[bi, sl] * w[:, None]).T @ x64[bi, sl, hi]
+    hprev = hprev.to(ft)
+
+    # state pass
+    dstate = torch.zeros_like(hprev)
+    dh0 = torch.zeros(bsz, nh, n, p, dtype=ft)
+    for bi in range(bsz):
+        for hi in range(nh):
+            dH = torch.zeros(n, p, dtype=ft) if dh is None else dh[bi, hi].to(ft)
+            for ci in reversed(range(nc)):
+                sl = chunks[ci]
+                _, s, es, _, _ = scan(bi, hi, sl)
+                dstate[bi, ci, hi] = dH
+                dH = es[-1] * dH + mm((c[bi, sl] * es[:, None]).T, dy[bi, sl, hi], True, True)
+            dh0[bi, hi] = dH
+
+    # db / dc pass (qv and sum(H o dH') on the way, which ds needs)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    qv = torch.zeros(bsz, t, nh, dtype=ft)
+    hs = torch.zeros(bsz, nc, nh, dtype=ft)
+    dcc = torch.zeros(bsz, nc, q, n, dtype=ft)
+    dbb = torch.zeros_like(dcc)
+    for bi in range(bsz):
+        for ci, sl in enumerate(chunks):
+            for hi in range(nh):
+                _, _, es, _, w = scan(bi, hi, sl)
+                hm, dhn = hprev[bi, ci, hi], dstate[bi, ci, hi]
+                yh = mm(dy[bi, sl, hi], hm.T, True, True)
+                qv[bi, sl, hi] = es * (c[bi, sl] * yh).sum(1)
+                hs[bi, ci, hi] = (hm * dhn).sum()
+                dcc[bi, ci] += es[:, None] * yh
+                dbb[bi, ci] += w[:, None] * mm(x[bi, sl, hi], dhn.T, in_split, True)
+
+    # per-chunk pass
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    dap = torch.zeros(bsz, nh, nc, dtype=ft)
+    groups = [range(g0, min(nh, g0 + hg)) for g0 in range(0, nh, hg)]
+    dgp = torch.zeros(bsz, nc, len(groups), q, q, dtype=ft)  # dG^T (rows j, columns t)
+    for bi in range(bsz):
+        for ci, sl in enumerate(chunks):
+            gt = mm(b[bi, sl], c[bi, sl].T, in_split, in_split)  # G^T[j, t]
+            for gi, heads in enumerate(groups):
+                for hi in heads:
+                    d, s, es, wl, w = scan(bi, hi, sl)
+                    lt = torch.exp(torch.where(tri, s[:, None] - s[None, :], neg_inf)).T
+                    yxt = torch.where(tri.T, mm(x[bi, sl, hi], dy[bi, sl, hi].T, in_split, True),
+                                      0.0)
+                    lgt = lt * gt
+                    dgt = lt * d[:, None] * yxt
+                    dgp[bi, ci, gi] += dgt
+                    dhn = dstate[bi, ci, hi]
+                    dx1 = mm(lgt, dy[bi, sl, hi], True, True)
+                    dx2 = mm(b[bi, sl], dhn, in_split, True)
+                    dx[bi, sl, hi] = d[:, None] * dx1 + w[:, None] * dx2
+                    t2 = (x[bi, sl, hi] * dx2).sum(1)
+                    colg = (lgt * yxt).sum(1)
+                    rowp = (gt * dgt).sum(0)
+                    ds = rowp - d * colg + qv[bi, sl, hi] - w * t2
+                    ds[-1] += es[-1] * hs[bi, ci, hi] + (w * t2).sum()
+                    dla = torch.flip(torch.cumsum(torch.flip(ds, [0]), 0), [0])
+                    ddt[bi, sl, hi] = colg + wl * t2 + a[hi] * dla
+                    dap[bi, hi, ci] = (dla * d).sum()
+
+    # the summed dG's products, after the heads
+    for bi in range(bsz):
+        for ci, sl in enumerate(chunks):
+            dgs = dgp[bi, ci].sum(0)
+            dc[bi, sl] = dcc[bi, ci] + mm(dgs.T, b[bi, sl], True, in_split)
+            db[bi, sl] = dbb[bi, ci] + mm(dgs, c[bi, sl], True, in_split)
+    da = dap.sum((0, 2))
+    if split is not None:
+        out_t = torch.float32 if in_split else torch.bfloat16
+        dx, db, dc = (v.to(out_t) for v in (dx, db, dc))
+    return dx, ddt, da, db, dc, (dh0 if h0 is not None else None)
 
 
 @pytest.mark.parametrize("shape,q,with_h0,with_dh", [
@@ -159,6 +249,58 @@ def test_kernel_algebra_matches_autograd(shape, q, with_h0, with_dh):
             assert name == "dh0" and not with_h0
             continue
         assert _rel_err(g.float(), w) <= EMU_TOL, name
+
+
+@pytest.mark.parametrize("nh,hg", [(5, 2), (7, 3), (3, 4)])
+def test_kernel_algebra_with_uneven_head_groups(nh, hg):
+    """Head counts that the group does not divide (zamba2's 80 heads in
+    groups of 20 divide; the card tests' 3 heads in groups of 2 do not):
+    the last group is short, every head still counted once."""
+    d = _heads(nh, 2, 24, nh, 4, 6)
+    x, dt, a, b, c, h0 = (torch.from_numpy(d[k]) for k in ("x", "dt", "a", "b", "c", "h0"))
+    dy, dh = torch.from_numpy(d["wy"]), torch.from_numpy(d["wh"])
+    want = tssd.ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, chunk=8)
+    got = emulate_ssd_bwd(x, dt, a, b, c, h0, dy, dh, 8, hg=hg)
+    for name, g, w in zip(NAMES, got, want):
+        assert _rel_err(g.float(), w) <= EMU_TOL, name
+
+
+# max |kernel - reference| over the largest |reference| of each gradient, as
+# the card tests and chip_smoke.py hold the kernel (SSD_GRAD_TOL there)
+SSD_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,q,with_h0,with_dh", [
+    ((2, 64, 3, 16, 32), 32, True, True), ((1, 48, 2, 8, 16), 16, False, True)])
+def test_split_operand_arithmetic_matches_jax_grad(dtype, shape, q, with_h0, with_dh):
+    """The kernels' arithmetic -- every f32 operand of a tensor-core product
+    as bf16 hi + lo, lo x lo dropped, f32 sums; bf16 inputs as they are and
+    dx, db, dc rounded to bf16 -- emulated in torch, against ``jax.grad`` of
+    the reference's ``ssd_chunked`` on the same input values."""
+    bsz, t, nh, p, n = shape
+    d = _heads(7 * sum(shape), bsz, t, nh, p, n, h0=with_h0)
+    if dtype == "bfloat16":  # the inputs the card gets, in both packages
+        for k in ("x", "b", "c"):
+            d[k] = torch.from_numpy(d[k]).to(torch.bfloat16).float().numpy()
+    names = ["x", "dt", "a", "b", "c"] + (["h0"] if with_h0 else [])
+
+    def jloss(*args):
+        kw = dict(zip(names, args))
+        y, h = j_ssd_chunked(kw["x"], kw["dt"], kw["a"], kw["b"], kw["c"], kw.get("h0"),
+                             chunk=q)
+        out = jnp.sum(y * d["wy"])
+        return out + jnp.sum(h * d["wh"]) if with_dh else out
+
+    want = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(jnp.asarray(d[k]) for k in names))
+    x, dt, a, b, c = (torch.from_numpy(d[k]) for k in ("x", "dt", "a", "b", "c"))
+    h0 = torch.from_numpy(d["h0"]) if with_h0 else None
+    dh = torch.from_numpy(d["wh"]) if with_dh else None
+    got = emulate_ssd_bwd(x, dt, a, b, c, h0, torch.from_numpy(d["wy"]), dh, q, split=dtype)
+    for name, g, w in zip(names, got, want):
+        err = _rel_err(g.float(), torch.from_numpy(np.array(w)))
+        assert err <= SSD_GRAD_TOL[dtype], (name, err)
 
 
 def test_function_plumbing_on_cpu():
