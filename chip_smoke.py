@@ -3,7 +3,8 @@
 its timed pipeline, serving every model family (Mamba-2, dense, MoE, VLM,
 the zamba2 hybrid, whisper), the block service, erasure-coded checkpoints
 and optimizer state, and training (mamba2-1.3b at full width on the SSD
-scan's forward and backward kernels, checkpointed restarts, every family).
+scan's forward and backward kernels, also on a device mesh, checkpointed
+restarts, every family), and the multi-pod dry run of every architecture.
 
 Run from the root of a checkout, with no arguments::
 
@@ -117,7 +118,18 @@ failing on the first error:
    ``launch.train.run``: step wall time, trained tokens/s, peak memory,
    finite losses and gradient norms, the SSD kernels' launches per step
    (96 forward under remat, 48 backward) and one step under
-   ``torch.profiler``; ``mamba2_grad_check`` holds the loss's gradients
+   ``torch.profiler``; ``sharded_train`` trains the same run again with the
+   parameters, AdamW state and batches as DTensors on ``make_host_mesh()``
+   (the card's (1, 1) mesh, an NCCL group of one) under ``use_mesh``: its
+   losses and final per-leaf norms must equal ``mamba2_train``'s
+   (``RESTART_TOL``; it prints whether they are bit-equal), its step time,
+   tokens/s and peak memory beside them; ``dryrun`` runs the port's dry run
+   (``launch/dryrun.py``) of every architecture at full width on the
+   256-way production mesh and of the three FSDP ones on the 512-way one
+   (``DRYRUN``), over worker processes, one line per cell (per-device
+   parameter and state bytes, roofline terms, collectives, SSD custom-op
+   calls), and fails unless every cell ``cell_supported`` allows reads "ok"
+   and every other "skip"; ``mamba2_grad_check`` holds the loss's gradients
    through the kernels to those through the plain scan (2 layers, f32,
    ``TRAIN_GRAD_TOL``); ``train_ckpt`` runs the reference's default
    training run (``TRAIN_CKPT``: RAID-5 checkpoints on the card's codec, a
@@ -135,8 +147,10 @@ again just before phase 8 and read just after phase 10's runs
 (``ckpt_launches``), before its kernels are timed.  The run fails unless each of the four codec kernels
 launched there.  All of them are zeroed again just before ``mamba2_train``
 and read just after it (``train_launches``; ``launches`` of
-``ssd_scan_bwd``), and just before and after ``train_ckpt``'s two runs
-(``train_ckpt_launches``).  The ``kernels`` line reports them all.
+``ssd_scan_bwd``), just before and after ``sharded_train``
+(``sharded_train_launches``: 96 / 96 / 48 per step, as unsharded), and just
+before and after ``train_ckpt``'s two runs (``train_ckpt_launches``).  The
+``kernels`` line reports them all.
 The last two lines are the card's name and power limit and the
 ``{"ok": true, "device": ...}`` result.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -287,6 +301,10 @@ TRAIN_CKPT = ["--arch", "smollm-135m", "--steps", "20", "--ckpt-every", "5",
 TRAIN_CKPT_RUNS = {"default": TRAIN_CKPT,
                    "degraded_restore": TRAIN_CKPT[:9] + ["11"] + TRAIN_CKPT[10:]}
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)
+# The dry run (launch/dryrun.py) of every architecture at full width on the
+# 256-way production mesh, and of ``multi`` on the 512-way one (the three
+# FSDP configurations, which exist to be sharded), over ``workers`` processes.
+DRYRUN = dict(multi=("qwen1.5-110b", "grok-1-314b", "llama4-scout-17b-a16e"), workers=8)
 # One train step of every architecture at smoke size on the card.
 FAMILY_STEP = dict(global_batch=2, seq_len=16)
 
@@ -956,44 +974,6 @@ def kernel_checks(alu_per_load: dict[str, float], int32_ops_per_s: float) -> lis
     return rows
 
 
-def ssd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
-    """FLOPs the scan needs.  Per batch row and chunk, the lower triangle of
-    C B^T: b and c are shared by the ``nh`` heads of a batch row, so G is
-    counted once per batch row, not per head.  Per head and chunk, the
-    triangle's product with dt*X, C h_prev and the state update."""
-    q = min(chunk, t)
-    tri = q * (q + 1) // 2
-    return (t // q) * (nb * 2 * tri * n + nb * nh * (2 * tri * p + 4 * q * n * p))
-
-
-def ssd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int,
-                     f32: bool = False) -> int:
-    """FLOPs the two kernels issue on the tensor cores, as m16n8k16 products
-    of 4,096 FLOP.  Per block (batch, head, 32 columns of p) and chunk: C
-    h_prev over all (q/16) x (n/16) tiles, M X over the tiles on and below
-    the diagonal and the state update over (n/16) x (q/16), each tile with
-    two products (hi and lo halves; three with f32 inputs) per 8 columns.
-    Per batch row and chunk, G's tiles on and below the diagonal, with one
-    product per 8 columns (three with f32 inputs)."""
-    q = min(chunk, t)
-    qt, nt, slices = -(-q // 16), -(-n // 16), -(-p // 32)
-    tri = qt * (qt + 1) // 2
-    per_block = 4 * (3 if f32 else 2) * (qt * nt + tri + nt * qt)
-    per_gram = tri * nt * 2 * (3 if f32 else 1)
-    return 4096 * (t // q) * (nb * nh * slices * per_block + nb * per_gram)
-
-
-def ssd_bytes(args) -> int:
-    """Bytes the scan must move with its operands as given (b and c shared
-    by the heads of a batch row are read once): the inputs once, y and
-    h_final (f32) once."""
-    x, dt, a, b, c, h0 = args
-    nb, t, nh, p = x.shape
-    n = b.shape[-1]
-    ins = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
-    return ins + 4 * nb * t * nh * p + 4 * nb * nh * n * p
-
-
 def tensor_core_instructions(library: Path) -> dict[str, int]:
     """HMMA/HGMMA instructions in the SASS of each SSD kernel instance
     (``cuobjdump -sass``); raises if one has none."""
@@ -1112,13 +1092,13 @@ def ssd_checks() -> list[dict]:
         bf16, beside their plain versions, bounds and (for G) the library
         call: (scan numbers, G numbers)."""
         main = heads(bf16, nb, t, nh, p, n)
-        nbytes = ssd_bytes(main)
+        nbytes = ssd.ssd_bytes(main)
         copies = [main] + [heads(bf16, nb, t, nh, p, n)
                            for _ in range(max(1, (96 << 20) // nbytes))]
         ms, call_ms = _time_ms(lambda *a_: ssd.ssd_scan(*a_, chunk=chunk), copies, 20)
         plain_ms, plain_call_ms = _time_ms(ssd.ssd_scan_plain, copies, 3)
-        flops = ssd_flops(nb, nh, t, chunk, n, p)
-        tensor_flops = ssd_tensor_flops(nb, nh, t, chunk, n, p)
+        flops = ssd.ssd_flops(nb, nh, t, chunk, n, p)
+        tensor_flops = ssd.ssd_tensor_flops(nb, nh, t, chunk, n, p)
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
         scan = {
@@ -1178,50 +1158,6 @@ def ssd_checks() -> list[dict]:
         **gram_main, "cases": len(cases), "hybrid_shape": gram_hyb,
     }
     return [scan_row, gram_row]
-
-
-def ssd_bwd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
-    """FLOPs the scan's gradient needs.  Per batch row and chunk, the lower
-    triangle of C B^T (shared by the heads); per head and chunk, the
-    triangle's products dY X^T, (L o G)^T dY, dG B and dG^T C, and the four
-    (q x n x p) products B dH', dY H^T, X dH'^T and (C o e^s)^T dY of the
-    state gradients."""
-    q = min(chunk, t)
-    tri = q * (q + 1) // 2
-    return (t // q) * (nb * 2 * tri * n + nb * nh * (4 * tri * p + 4 * tri * n + 8 * q * n * p))
-
-
-def ssd_bwd_bytes(args) -> int:
-    """Bytes the gradient must move: x, dt, a, b, c, h0, dy and the final
-    state's gradient read once; dx, ddt, da, db, dc (and dh0) written once."""
-    x, dt, a, b, c, h0, dy, dh = args
-    ins = sum(v.numel() * v.element_size() for v in args if v is not None)
-    outs = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
-    return ins + outs
-
-
-def ssd_bwd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int, groups: int,
-                         f32: bool = False) -> int:
-    """FLOPs the backward's kernels issue on the tensor cores, as m16n8k16
-    products of 4,096 FLOP (split halves and padding included; ``f32``: x,
-    b, c split too).  The state pass: per row, 32-column slice of p and
-    chunk, (C o e^s)^T dY over (n/16) x (q/16) tiles and 4 columns of 8,
-    three products each.  The per-chunk kernel: G^T's triangle once per
-    block (batch, chunk, head group); per head the triangle's (dY X^T)^T
-    (two products, three with f32 x) and (L o G)^T dY (three), and B dH'
-    (two, three) over (q/16) x (n/16), ``groups`` blocks per (batch, chunk).
-    The db/dc pass: per (batch, chunk,
-    32 columns of n) and head, dY H^T (three) and X dH'^T (two, three); then
-    (sum dG) B and (sum dG)^T C (two each, three with f32 b, c)."""
-    q = min(chunk, t)
-    nc, qt, nt, pt = t // q, -(-q // 16), -(-n // 16), -(-p // 16)
-    tri, pslices, nslices = qt * (qt + 1) // 2, -(-p // 32), -(-n // 32)
-    x2, k3 = (3 if f32 else 2), (3 if f32 else 1)
-    dstate = nb * nh * pslices * nc * nt * qt * 4 * 3
-    gram_t = nb * nc * groups * tri * nt * 2 * k3
-    per_head = tri * pt * 2 * (x2 + 3) + qt * nt * pt * 2 * x2
-    dbc = nb * nc * nslices * (nh * qt * 4 * pt * (3 + x2) + qt * 4 * qt * (4 + (2 if f32 else 0)))
-    return 4096 * (dstate + gram_t + nb * nh * nc * per_head + dbc)
 
 
 def bwd_tensor_core_instructions(library: Path) -> dict[str, int]:
@@ -1364,10 +1300,10 @@ def ssd_grad_checks(library: Path) -> dict:
         plain_ms = _event_ms(lambda *a: ssd.ssd_scan_bwd_plain(*a[:8], chunk=chunk), copies,
                              2) if plain else None
         nh_, p_, n_ = shape
-        flops = ssd_bwd_flops(nb, nh_, t, chunk, n_, p_)
+        flops = ssd.ssd_bwd_flops(nb, nh_, t, chunk, n_, p_)
         groups = ssd._head_groups(nb * (t // chunk), nh_, "cuda")[0]
-        tensor_flops = ssd_bwd_tensor_flops(nb, nh_, t, chunk, n_, p_, groups)
-        nbytes = ssd_bwd_bytes(timed)
+        tensor_flops = ssd.ssd_bwd_tensor_flops(nb, nh_, t, chunk, n_, p_, groups)
+        nbytes = ssd.ssd_bwd_bytes(timed)
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         op_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S
         return {
@@ -2553,9 +2489,149 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
         "steady_step_ms": 1e3 * step_s, "trained_tok_s": rep["tokens_per_step"] / step_s,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
         "launches_per_step": {k: v / steps for k, v in counts.items() if v},
-        "profile": rep.get("profile"),
+        "profile": rep.get("profile"), "leaf_norms": rep.get("leaf_norms"),
     })
     return counts
+
+
+def sharded_train(ph: Phase, want: dict, device: str = "cuda", spec: dict = TRAIN,
+                  shrink=None) -> dict:
+    """``mamba2_train``'s run on a device mesh: the same model (seed 0),
+    AdamW and batches, the parameters, AdamW state and each batch distributed
+    as DTensors by ``param_specs``, ``state_specs`` and ``batch_specs`` on
+    ``make_host_mesh()`` (on one card the (1, 1) mesh of an NCCL group of
+    one), the port's train step under ``use_mesh``.  Its losses and the
+    final parameters' per-leaf norms must equal ``want``'s (``mamba2_train``'s
+    report) within ``RESTART_TOL``; whether they are bit-equal is printed.
+    Returns the kernel launches since they were last zeroed, which the
+    caller does just before; the process group is torn down after."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import _tree
+    from repro_torch.data.pipeline import DataConfig, batch_for_step, batch_specs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import leaf_norms
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as steps_mod
+
+    cfg = model_config(spec["arch"], shrink)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(device_type=device)
+    try:
+        opt_cfg = adamw.AdamWConfig(warmup_steps=10)  # launch/train.py's
+        model, step = steps_mod.make_train_step(cfg, opt_cfg, device=device)
+        params = steps_mod.params_of(model)
+        pspecs = sh.param_specs(params, model.axes(), mesh, fsdp=cfg.fsdp)
+        opt = steps_mod.init_opt_state(model, params, opt_cfg)
+        dparams = sh.distribute(params, mesh, pspecs)
+        dopt = sh.distribute(opt, mesh, adamw.state_specs(pspecs, params, mesh))
+        del params, opt
+        dc = DataConfig(spec["global_batch"], spec["seq_len"], cfg.vocab)
+        bspecs = batch_specs(dc, cfg, mesh)
+        losses, step_s, gnorms = [], [], []
+        with sh.use_mesh(mesh):
+            for i in range(spec["steps"]):
+                batch = sh.distribute(batch_for_step(dc, cfg, i, device=device), mesh, bspecs)
+                t0 = time.perf_counter()
+                dparams, dopt, m = step(dparams, dopt, batch)
+                losses.append(float(m["loss"].full_tensor()))
+                step_s.append(time.perf_counter() - t0)
+                gnorms.append(float(m["grad_norm"].full_tensor()))
+        counts = launch_counts()  # read just after the run
+        norms = leaf_norms(dparams)
+        placements = sorted({str(tuple(p.placements)) for p in _tree.leaves(dparams)})
+        del dparams, dopt
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"sharded training: losses {losses}, grad norms {gnorms}")
+    if not np.allclose(losses, want["losses"], **RESTART_TOL):
+        raise AssertionError(f"sharded losses {losses} differ from the unsharded run's "
+                             f"{want['losses']}")
+    names = sorted(want["leaf_norms"])
+    if sorted(norms) != names or not np.allclose([norms[k] for k in names],
+                                                 [want["leaf_norms"][k] for k in names],
+                                                 **RESTART_TOL):
+        raise AssertionError("the sharded run's final parameters differ from the unsharded "
+                             "run's (per-leaf norms)")
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers * spec["steps"]
+    expect = {"ssd_scan": fwd, "ssd_chunk_gram": fwd, "ssd_scan_bwd": cfg.n_layers * spec["steps"]}
+    for name, n in counts.items():
+        if cuda and n != expect.get(name, 0):
+            raise AssertionError(f"sharded training launched {name} {n} times, want "
+                                 f"{expect.get(name, 0)}: {counts}")
+    steady = statistics.median(step_s[1:] or step_s)
+    tokens = spec["global_batch"] * spec["seq_len"]
+    ph.info.update({
+        "arch": cfg.name, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "placements": placements, "steps": spec["steps"], "losses": losses,
+        "losses_bit_equal": losses == list(want["losses"]),
+        "leaf_norms_bit_equal": all(norms[k] == want["leaf_norms"][k] for k in names),
+        "step_ms": [1e3 * s for s in step_s], "steady_step_ms": 1e3 * steady,
+        "trained_tok_s": tokens / steady,
+        "unsharded_steady_step_ms": want.get("steady_step_ms"),
+        "unsharded_tok_s": want.get("trained_tok_s"),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+        "unsharded_peak_mem_bytes": want.get("peak_mem_bytes"),
+        "launches_per_step": {k: v / spec["steps"] for k, v in counts.items() if v},
+    })
+    return counts
+
+
+def dryrun_phase(ph: Phase, out: Path, device: str = "cuda", workers: int | None = None,
+                 multi: tuple = DRYRUN["multi"], archs=None, shapes=None) -> list[dict]:
+    """Every architecture in configs/ at full width through the port's dry
+    run (``launch/dryrun.py``'s ``run_cell``) on the 256-way production mesh,
+    and the ``multi`` archs on the 512-way one, the cells spread over worker
+    processes (each a fake process group of its own).  Prints one line per
+    cell; fails unless every cell ``cell_supported`` allows reads "ok" and
+    every other "skip"."""
+    import os
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, cell_supported
+
+    archs = archs or ARCHS
+    shapes = shapes or list(SHAPES)
+    tasks = [(a, s, False) for a in archs for s in shapes]
+    tasks += [(a, s, True) for a in multi for s in shapes]
+    # the costliest first: deep models, long sequences, training
+    cost = {"train_4k": 3, "prefill_32k": 4, "decode_32k": 1, "long_500k": 1}
+    tasks.sort(key=lambda t: -get_config(t[0]).n_layers * cost[t[1]])
+    workers = workers or min(DRYRUN["workers"], os.cpu_count() or 1)
+    results = dryrun.run_cells(tasks, out, workers=workers, force=True, device=device)
+    bad = []
+    for r in results:
+        ok, _ = cell_supported(get_config(r["arch"]), r["shape"])
+        roof = r.get("roofline", {})
+        _emit({"dryrun_cell": f"{r['arch']} {r['shape']} {r['mesh']}", "status": r["status"],
+               "cell_s": r["cell_s"], "param_dev_bytes": r.get("param_dev_bytes"),
+               "state_dev_bytes": r.get("state_dev_bytes"),
+               "compute_s": roof.get("compute_s"), "memory_s": roof.get("memory_s"),
+               "collective_s": roof.get("collective_s"), "dominant": r.get("dominant"),
+               "collectives": {k: [v["count"], v["bytes"]]
+                               for k, v in roof.get("collectives", {}).items()},
+               "ssd_calls": r.get("ssd_calls"), "n_ops": r.get("n_ops"),
+               **({"error": r["error"]} if r["status"] == "fail" else {})})
+        if r["status"] != ("ok" if ok else "skip"):
+            bad.append((r["arch"], r["shape"], r["mesh"], r["status"], r.get("error")))
+    ph.info.update({"cells": len(results), "workers": workers,
+                    "ok": sum(r["status"] == "ok" for r in results),
+                    "skip": sum(r["status"] == "skip" for r in results),
+                    "multi_archs": list(multi)})
+    if bad:
+        raise AssertionError(f"dry-run cells not as cell_supported says: {bad}")
+    return results
 
 
 @contextlib.contextmanager
@@ -2841,8 +2917,16 @@ def main() -> int:
     reset_launch_counts()  # the training run's launches start here
     with Phase("mamba2_train") as ph:
         train_path = mamba2_train(ph)
+    unsharded = ph.info
     gc.collect()
     torch.cuda.empty_cache()
+    reset_launch_counts()  # the sharded training run's launches start here
+    with Phase("sharded_train") as ph:
+        sharded_path = sharded_train(ph, unsharded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("dryrun") as ph:
+        dryrun_phase(ph, ROOT / "build" / "dryrun_smoke")
     with Phase("mamba2_grad_check") as ph:
         mamba2_grad_check(ph)
     gc.collect()
@@ -2868,9 +2952,11 @@ def main() -> int:
         r["hybrid_launches"] = serving["hybrid"][r["name"]]
         r["train_launches"] = train_path[r["name"]]
         r["train_ckpt_launches"] = train_ckpt_path[r["name"]]
+        r["sharded_train_launches"] = sharded_path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_launches",
-            "ckpt_launches", "hybrid_launches", "train_launches", "train_ckpt_launches")
+            "ckpt_launches", "hybrid_launches", "train_launches", "train_ckpt_launches",
+            "sharded_train_launches")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ identical stream.  The draws are the reference's, made without jax by
 and ``vis_embeds`` (vlm) take torch's ``erfinv`` of the same uniform values,
 within an ulp of XLA's.
 
-``batch_specs`` (PartitionSpecs over a mesh) waits for the sharding slice.
+``batch_specs`` gives a batch's specs on a device mesh (the batch dim over
+the data axes), for ``distributed.sharding.distribute``.
 """
 from __future__ import annotations
 
@@ -63,3 +64,15 @@ def host_shard(batch: dict, host_index: int, n_hosts: int) -> dict:
         per = x.shape[0] // n_hosts
         return x[host_index * per : (host_index + 1) * per]
     return {k: slc(v) for k, v in batch.items()}
+
+
+def batch_specs(dc: DataConfig, cfg: ModelConfig, mesh) -> dict:
+    """Specs of a batch (batch dim over the data axes)."""
+    from repro_torch.distributed import sharding as sh
+
+    specs = {"tokens": sh.data_spec(mesh, 2), "labels": sh.data_spec(mesh, 2)}
+    if cfg.family == "encdec":
+        specs["frames"] = sh.data_spec(mesh, 3)
+    if cfg.family == "vlm":
+        specs["vis_embeds"] = sh.data_spec(mesh, 3)
+    return specs

@@ -19,7 +19,7 @@ import torch
 from repro_torch.core import gf
 from repro_torch.kernels.gf256_matmul import gf256_matmul, gf256_matmul_batch
 from repro_torch.kernels.parity_xor import parity_xor, parity_xor_batch
-from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, SSDScanFn, ssd_scan
+from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, ssd_scan_op
 
 
 def rs_parity_coeff(k: int, m: int, device: str | torch.device) -> torch.Tensor:
@@ -117,10 +117,10 @@ def unpack_bytes_np(data_i32: np.ndarray) -> np.ndarray:
 
 def ssd_chunk_scan(x, dt, a, b, c, h0=None, *, chunk: int = DEFAULT_CHUNK):
     """Mamba-2 SSD scan; see kernels/ssd_scan.py.  Returns (y, h_final).
-    When autograd records and an operand requires grad, the scan runs as
-    ``SSDScanFn`` (the forward kernel keeping its chunk states, the backward
-    kernel after it); otherwise as the plain forward launch."""
-    if torch.is_grad_enabled() and any(
-            v is not None and v.requires_grad for v in (x, dt, a, b, c, h0)):
-        return SSDScanFn.apply(x, dt, a, b, c, h0, chunk)
-    return ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
+    It runs as the operator ``repro_torch::ssd_scan``; when autograd records
+    and an operand requires grad, the forward kernel also keeps its chunk
+    states for the backward kernel."""
+    keep = torch.is_grad_enabled() and any(
+        v is not None and v.requires_grad for v in (x, dt, a, b, c, h0))
+    y, h, _ = ssd_scan_op(x, dt, a, b, c, h0, chunk, keep)
+    return y, h

@@ -24,17 +24,21 @@ type); dt, a and h0 are f32; y and h come back in f32.  As in the Pallas
 kernel, q = min(chunk, t) and t must be a multiple of q: ``ssd_chunked``
 pads a ragged t with dt = 0 steps before it calls here.
 
-The gradient.  :class:`SSDScanFn` is the scan as a ``torch.autograd.Function``:
-on the card its forward is the same kernel, also writing the state that
-enters each chunk (``hprev``, (B, T/q, H, N, P) f32, the reference's
-``h_prev``), and its backward launches ``csrc/ssd_scan_bwd.cu``
-(:func:`ssd_scan_bwd`): dx, ddt, da, db, dc and dh0 from dy and the final
-state's gradient on the tensor cores, b's and c's summed over the heads in
-registers in a fixed order, so the same inputs give the same bits (its
-per-chunk kernel stages (q, p) tiles: p <= 64, ``MAX_BWD_P``).  On the CPU
-its forward is the plain version and its backward autograd through it
-(:func:`ssd_scan_bwd_plain`), which is also what the tests and
-``chip_smoke.py`` hold the kernel to.
+The gradient.  The scan is the operator ``torch.ops.repro_torch.ssd_scan``
+(:func:`ssd_scan_op`) with an autograd rule: on the card its forward is the
+same kernel, also writing the state that enters each chunk (``hprev``,
+(B, T/q, H, N, P) f32, the reference's ``h_prev``), and its backward is the
+operator ``repro_torch::ssd_scan_bwd``, which launches
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`): dx, ddt, da, db, dc and dh0
+from dy and the final state's gradient on the tensor cores, b's and c's
+summed over the heads in registers in a fixed order, so the same inputs give
+the same bits (its per-chunk kernel stages (q, p) tiles: p <= 64,
+``MAX_BWD_P``).  On the CPU its forward is the plain version and its
+backward autograd through it (:func:`ssd_scan_bwd_plain`), which is also
+what the tests and ``chip_smoke.py`` hold the kernel to.  Both operators
+have shape functions, so fake tensors trace them, and FLOP formulas
+(:func:`ssd_flops`, :func:`ssd_bwd_flops`, the counts ``chip_smoke.py``'s
+bounds read too) for ``torch.utils.flop_counter``.
 
 ``LAUNCHES`` counts kernel launches: ``ssd_scan`` once per scan and
 ``ssd_chunk_gram`` once per scan or ``chunk_gram`` call; ``ssd_scan_bwd``
@@ -45,6 +49,7 @@ and dc, ds's reverse cumsum, da).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -323,28 +328,212 @@ def _head_groups(chunks: int, nh: int, device) -> tuple[int, int]:
     return -(-nh // hg), hg
 
 
-class SSDScanFn(torch.autograd.Function):
-    """The scan with its gradient: ``SSDScanFn.apply(x, dt, a, b, c, h0,
-    chunk) -> (y, h_final)``, both f32.  On the card the forward keeps the
-    chunk states for the backward kernel; on the CPU the plain version runs
-    both ways.  A gradient given as None counts as zeros; dh0 is None when
-    h0 is."""
+# ------------------------------------------------------------------- counts
 
-    @staticmethod
-    def forward(ctx, x, dt, a, b, c, h0, chunk):
-        if x.device.type == "cuda":
-            y, h, hprev = ssd_scan_states(x, dt, a, b, c, h0, chunk=chunk)
-        else:
-            y, h = ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
-            hprev = None
-        ctx.chunk = chunk
-        ctx.save_for_backward(x, dt, a, b, c, h0, hprev)
-        return y, h
+def ssd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
+    """FLOPs the scan needs.  Per batch row and chunk, the lower triangle of
+    C B^T: b and c are shared by the ``nh`` heads of a batch row, so G is
+    counted once per batch row, not per head.  Per head and chunk, the
+    triangle's product with dt*X, C h_prev and the state update."""
+    q = min(chunk, t)
+    tri = q * (q + 1) // 2
+    return (t // q) * (nb * 2 * tri * n + nb * nh * (2 * tri * p + 4 * q * n * p))
 
-    @staticmethod
-    def backward(ctx, dy, dh):
-        x, dt, a, b, c, h0, hprev = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        grads = ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, chunk=ctx.chunk, hprev=hprev)
-        return (*grads, None)
+
+def ssd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int,
+                     f32: bool = False) -> int:
+    """FLOPs the two kernels issue on the tensor cores, as m16n8k16 products
+    of 4,096 FLOP.  Per block (batch, head, 32 columns of p) and chunk: C
+    h_prev over all (q/16) x (n/16) tiles, M X over the tiles on and below
+    the diagonal and the state update over (n/16) x (q/16), each tile with
+    two products (hi and lo halves; three with f32 inputs) per 8 columns.
+    Per batch row and chunk, G's tiles on and below the diagonal, with one
+    product per 8 columns (three with f32 inputs)."""
+    q = min(chunk, t)
+    qt, nt, slices = -(-q // 16), -(-n // 16), -(-p // 32)
+    tri = qt * (qt + 1) // 2
+    per_block = 4 * (3 if f32 else 2) * (qt * nt + tri + nt * qt)
+    per_gram = tri * nt * 2 * (3 if f32 else 1)
+    return 4096 * (t // q) * (nb * nh * slices * per_block + nb * per_gram)
+
+
+def ssd_bytes(args) -> int:
+    """Bytes the scan must move with its operands as given (b and c shared
+    by the heads of a batch row are read once): the inputs once, y and
+    h_final (f32) once."""
+    x, dt, a, b, c, h0 = args
+    nb, t, nh, p = x.shape
+    n = b.shape[-1]
+    ins = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
+    return ins + 4 * nb * t * nh * p + 4 * nb * nh * n * p
+
+
+def ssd_bwd_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int) -> int:
+    """FLOPs the scan's gradient needs.  Per batch row and chunk, the lower
+    triangle of C B^T (shared by the heads); per head and chunk, the
+    triangle's products dY X^T, (L o G)^T dY, dG B and dG^T C, and the four
+    (q x n x p) products B dH', dY H^T, X dH'^T and (C o e^s)^T dY of the
+    state gradients."""
+    q = min(chunk, t)
+    tri = q * (q + 1) // 2
+    return (t // q) * (nb * 2 * tri * n + nb * nh * (4 * tri * p + 4 * tri * n + 8 * q * n * p))
+
+
+def ssd_bwd_bytes(args) -> int:
+    """Bytes the gradient must move: x, dt, a, b, c, h0, dy and the final
+    state's gradient read once; dx, ddt, da, db, dc (and dh0) written once."""
+    x, dt, a, b, c, h0, dy, dh = args
+    ins = sum(v.numel() * v.element_size() for v in args if v is not None)
+    outs = sum(v.numel() * v.element_size() for v in (x, dt, a, b, c, h0) if v is not None)
+    return ins + outs
+
+
+def ssd_bwd_tensor_flops(nb: int, nh: int, t: int, chunk: int, n: int, p: int, groups: int,
+                         f32: bool = False) -> int:
+    """FLOPs the backward's kernels issue on the tensor cores, as m16n8k16
+    products of 4,096 FLOP (split halves and padding included; ``f32``: x,
+    b, c split too).  The state pass: per row, 32-column slice of p and
+    chunk, (C o e^s)^T dY over (n/16) x (q/16) tiles and 4 columns of 8,
+    three products each.  The per-chunk kernel: G^T's triangle once per
+    block (batch, chunk, head group); per head the triangle's (dY X^T)^T
+    (two products, three with f32 x) and (L o G)^T dY (three), and B dH'
+    (two, three) over (q/16) x (n/16), ``groups`` blocks per (batch, chunk).
+    The db/dc pass: per (batch, chunk,
+    32 columns of n) and head, dY H^T (three) and X dH'^T (two, three); then
+    (sum dG) B and (sum dG)^T C (two each, three with f32 b, c)."""
+    q = min(chunk, t)
+    nc, qt, nt, pt = t // q, -(-q // 16), -(-n // 16), -(-p // 16)
+    tri, pslices, nslices = qt * (qt + 1) // 2, -(-p // 32), -(-n // 32)
+    x2, k3 = (3 if f32 else 2), (3 if f32 else 1)
+    dstate = nb * nh * pslices * nc * nt * qt * 4 * 3
+    gram_t = nb * nc * groups * tri * nt * 2 * k3
+    per_head = tri * pt * 2 * (x2 + 3) + qt * nt * pt * 2 * x2
+    dbc = nb * nc * nslices * (nh * qt * 4 * pt * (3 + x2) + qt * 4 * qt * (4 + (2 if f32 else 0)))
+    return 4096 * (dstate + gram_t + nb * nh * nc * per_head + dbc)
+
+
+def _dims(x_shape, b_shape) -> tuple[int, int, int, int, int]:
+    """(batch, heads, t, n, p) of a scan's x and b shapes in either layout."""
+    if len(x_shape) == 3:
+        (nb, t, p), nh = x_shape, 1
+    else:
+        nb, t, nh, p = x_shape
+    return nb, nh, t, b_shape[-1], p
+
+
+# ------------------------------------------------------------ custom ops
+#
+# The scan and its gradient as operators of their own (``repro_torch::
+# ssd_scan`` and ``repro_torch::ssd_scan_bwd``): each runs the path its
+# tensors' device picks (the plain version on the CPU, the kernels on the
+# card), has a shape function for fake tensors (the dry run traces models
+# without data: ``launch/dryrun.py``), an autograd rule (the forward keeps
+# its chunk states for the backward kernel) and a FLOP formula for
+# ``torch.utils.flop_counter`` from the counts above.  The shape functions
+# compute nothing: a tensor with data always takes the real path.
+
+def _empty(like: torch.Tensor) -> torch.Tensor:
+    return like.new_empty((0,), dtype=torch.float32)
+
+
+def _scan_shapes(x, b, chunk: int, keep_states: bool):
+    nb, nh, t, n, p = _dims(tuple(x.shape), tuple(b.shape))
+    q = min(chunk, t)
+    rows = x.ndim == 3
+    y = (nb, t, p) if rows else (nb, t, nh, p)
+    h = (nb, n, p) if rows else (nb, nh, n, p)
+    states = _state_shape(nb, nh, t, q, n, p, rows) \
+        if keep_states and x.device.type == "cuda" else (0,)
+    return y, h, states
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, h0: Optional[torch.Tensor], chunk: int,
+                keep_states: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, h_final, hprev): the scan; with ``keep_states`` on the card also
+    the state entering each chunk (for the backward kernel), else an empty
+    ``hprev``."""
+    if keep_states and x.device.type == "cuda":
+        return ssd_scan_states(x, dt, a, b, c, h0, chunk=chunk)
+    y, h = ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
+    return y, h, _empty(x)
+
+
+@ssd_scan_op.register_fake
+def _(x, dt, a, b, c, h0, chunk, keep_states):
+    y, h, states = _scan_shapes(x, b, chunk, keep_states)
+    f32 = torch.float32
+    return x.new_empty(y, dtype=f32), x.new_empty(h, dtype=f32), x.new_empty(states, dtype=f32)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def ssd_scan_bwd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                    dh: Optional[torch.Tensor], hprev: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """(dx, ddt, da, db, dc, dh0) of :func:`ssd_scan_bwd` on the card; dh0
+    is empty without h0, and an empty ``hprev`` has the kernel recompute the
+    chunk states.  A CPU tensor's gradient is autograd through the plain
+    scan (:func:`ssd_scan_bwd_plain`), which cannot record inside an
+    operator: the scan's autograd rule calls it directly."""
+    if x.device.type != "cuda":
+        raise ValueError("repro_torch::ssd_scan_bwd runs the CUDA kernel; a CPU tensor's "
+                         "gradient is ssd_scan_bwd_plain")
+    *grads, dh0 = ssd_scan_bwd(x, dt, a, b, c, h0, dy, dh, chunk=chunk,
+                               hprev=hprev if hprev.numel() else None)
+    return (*grads, _empty(x) if dh0 is None else dh0)
+
+
+@ssd_scan_bwd_op.register_fake
+def _(x, dt, a, b, c, h0, dy, dh, hprev, chunk):
+    f32 = torch.float32
+    nb, _, t, n, _ = _dims(tuple(x.shape), tuple(b.shape))
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape, dtype=f32),
+            a.new_empty(a.shape, dtype=f32), x.new_empty((nb, t, n)),
+            x.new_empty((nb, t, n)),
+            _empty(x) if h0 is None else h0.new_empty(h0.shape, dtype=f32))
+
+
+def _scan_setup(ctx, inputs, output):
+    x, dt, a, b, c, h0, chunk, _ = inputs
+    ctx.chunk = chunk
+    ctx.has_h0 = h0 is not None
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, dt, a, b, c, h0, output[2])
+
+
+def _scan_backward(ctx, dy, dh, _dstates):
+    x, dt, a, b, c, h0, hprev = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if type(x) is torch.Tensor and x.device.type == "cpu":  # data on the host: plain
+        return (*ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dh, chunk=ctx.chunk), None, None)
+    dx, ddt, da, db, dc, dh0 = ssd_scan_bwd_op(x, dt, a, b, c, h0, dy, dh, hprev, ctx.chunk)
+    return dx, ddt, da, db, dc, (dh0 if ctx.has_h0 else None), None, None
+
+
+ssd_scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
+def _scan_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, h0_shape, chunk,
+                keep_states, *args, out_shape=None, **kwargs) -> int:
+    nb, nh, t, n, p = _dims(x_shape, b_shape)
+    return ssd_flops(nb, nh, t, chunk, n, p)
+
+
+def _scan_bwd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, h0_shape, dy_shape,
+                    dh_shape, hprev_shape, chunk, *args, out_shape=None, **kwargs) -> int:
+    nb, nh, t, n, p = _dims(x_shape, b_shape)
+    return ssd_bwd_flops(nb, nh, t, chunk, n, p)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula(torch.ops.repro_torch.ssd_scan)(_scan_flops)
+    register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)(_scan_bwd_flops)
+
+
+_register_flop_formulas()

@@ -65,9 +65,10 @@ def run(argv=None, *, init_params: dict | None = None, report: dict | None = Non
 
     ``report``, a dict, receives what a caller measures: ``step_s`` (wall
     seconds of each step, ending with the loss on the host), ``grad_norm``,
-    ``tokens_per_step``, ``params`` (count), the ``engine`` stats, and, when
-    ``report["profile_step"]`` names a step, ``profile`` (that step under
-    ``torch.profiler``)."""
+    ``tokens_per_step``, ``params`` (count), the ``engine`` stats,
+    ``leaf_norms`` (the f32 norm of each final parameter, by its tree
+    path), and, when ``report["profile_step"]`` names a step, ``profile``
+    (that step under ``torch.profiler``)."""
     args = parse_args(argv)
     dev = check_device(args.device)
     cfg = get_config(args.arch)
@@ -124,9 +125,20 @@ def run(argv=None, *, init_params: dict | None = None, report: dict | None = Non
 
     dt = time.time() - t0
     rep["engine"] = engine.stats()
+    rep["leaf_norms"] = leaf_norms(params)
     print(f"done: {args.steps} steps in {dt:.1f}s; "
           f"final loss {losses[-1]:.4f}; ckpt stats: {engine.stats()}")
     return losses
+
+
+def leaf_norms(params: dict) -> dict[str, float]:
+    """{tree path: f32 norm} of a parameter tree (a DTensor's whole tensor)."""
+    from repro_torch.checkpoint import _tree
+
+    def whole(p):
+        return p.full_tensor() if hasattr(p, "full_tensor") else p
+
+    return {name: float(whole(p).float().norm()) for name, p in _tree.flatten_with_path(params)[0]}
 
 
 def _profiled(rep: dict, train_step, params, opt_state, batch):

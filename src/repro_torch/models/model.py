@@ -92,18 +92,66 @@ def _ones(cfg: ModelConfig, shape, device) -> torch.Tensor:
 
 
 def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy of ``labels`` under ``logits``, in f32."""
+    """Mean cross-entropy of ``labels`` under ``logits``, in f32.  DTensor
+    logits whose vocab dim is split over ranks take :func:`_ce_loss_sharded`;
+    others compute each rank's tokens with the plain ops (``local_map``)."""
     logits = logits.float()
+    if not L.is_dtensor(logits):
+        return torch.mean(_token_ce(logits, labels))
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    if any(L.splits(p, last, logits.ndim) and n > 1
+           for p, n in zip(logits.placements, mesh.shape)):
+        return _ce_loss_sharded(logits, labels)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = list(labels.placements) if L.is_dtensor(labels) else [Replicate()] * mesh.ndim
+    per_token = local_map(_token_ce, out_placements=rows, in_placements=(rows, rows),
+                          device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return torch.mean(per_token)
+
+
+def _token_ce(logits, labels):
+    """Each token's cross-entropy: log-sum-exp of its logits less the gold one."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def _ce_loss_sharded(logits, labels):
+    """The cross-entropy of DTensor logits, whose vocab dim may be sharded:
+    the max, the sum of exponentials and the gold logit (a masked sum, where
+    a gather would need every shard) reduce over the vocab shards as
+    (B, T) partials, so the logits are never gathered.  The log-sum-exp is
+    max + log(sum(exp(x - max))), as ``torch.logsumexp`` computes it."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    vocab = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device.type), logits.device_mesh,
+        [Shard(0) if L.splits(p, logits.ndim - 1, logits.ndim) else Replicate()
+         for p in logits.placements], src_data_rank=None)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = torch.where(vocab == labels.long()[..., None], logits, 0.0).sum(dim=-1)
     return torch.mean(logz - gold)
+
+
+_META = object()  # meta_model's device: shapes only, past check_device
+
+
+def _stacked(axes: dict) -> dict:
+    """An axes tree with the leading "layers" stacking axis added."""
+    return {k: _stacked(v) if isinstance(v, dict) else ("layers", *v) for k, v in axes.items()}
 
 
 def _setup(cls, cfg: ModelConfig, families: tuple[str, ...], device, generator):
     """The checked device and the generator (seed 0 unless one is given)
-    of a model of class ``cls``, which runs ``families``."""
+    of a model of class ``cls``, which runs ``families``.  For
+    :func:`meta_model` (``device`` is ``_META``) the meta device and no
+    generator: nothing is drawn."""
     if cfg.family not in families:
         raise ValueError(f"{cls.__name__} runs families {families}, not {cfg.family!r}")
+    if device is _META:
+        return torch.device("meta"), None
     dev = check_device(device)
     return dev, generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -167,6 +215,20 @@ class TransformerLM(_LM):
                                              cfg.vis_embed_dim ** -0.5, dt, dev)
         super().__init__(cfg, tree)
 
+    def axes(self) -> dict:
+        """The logical-axis tree of the parameters (the reference's)."""
+        cfg = self.cfg
+        ffn = L.moe_axes(cfg) if cfg.n_experts else L.mlp_axes()
+        a = {"embed": ("vocab", "embed"),
+             "layers": _stacked({"attn": L.attention_axes(cfg), "mlp": ffn,
+                                 "ln1": (None,), "ln2": (None,)}),
+             "final_norm": (None,)}
+        if not cfg.tie_embeddings:
+            a["lm_head"] = ("embed", "vocab")
+        if cfg.family == "vlm":
+            a["vis_proj"] = (None, "embed")
+        return a
+
     def _layer(self, p, x, positions, kv_cache=None, cache_len=None, bf16_reduce=False):
         cfg = self.cfg
         h, kv = L.attention_apply(p["attn"], L.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -177,6 +239,15 @@ class TransformerLM(_LM):
             return x + L.moe_apply(p["mlp"], z, cfg), kv
         return x + L.mlp_apply(p["mlp"], z, bf16_reduce), kv
 
+    def _gather(self, p, x):
+        """With ``cfg.fsdp_gather`` on a mesh, one layer's weights gathered to
+        their TP-only placements and the residual stream pinned to the batch
+        layout (the reference's FSDP layer loop); else as they are."""
+        if not self.cfg.fsdp_gather:
+            return p, x
+        axes = L.strip_layer_axis(self.axes()["layers"])
+        return L.gather_fsdp_weights(p, axes), L.pin_activation_batch(x)
+
     def _logits(self, x):
         if self.cfg.tie_embeddings:  # gemma-style scaling keeps tied-head logits O(1)
             return (x @ self.embed.T) * self.cfg.d_model ** -0.5
@@ -184,7 +255,7 @@ class TransformerLM(_LM):
 
     def _inputs(self, tokens, vis_embeds):
         """Token embeddings, after the projected vision prefix for a VLM."""
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         if vis_embeds is None:
             return x
         if self.cfg.family != "vlm":
@@ -198,6 +269,7 @@ class TransformerLM(_LM):
         positions = _positions(*x.shape[:2], x.device)
 
         def layer(p, h):
+            p, h = self._gather(p, h)
             return self._layer(p, h, positions, bf16_reduce=cfg.bf16_reduce)[0]
 
         for p in per_layer(self.layers.tree(), cfg.n_layers):
@@ -215,12 +287,13 @@ class TransformerLM(_LM):
         x = self._inputs(tokens, vis_embeds)
         b, t = x.shape[:2]
         positions = _positions(b, t, x.device)
-        k = x.new_empty((cfg.n_layers, b, t, cfg.n_kv_heads, cfg.hd()))
-        v = torch.empty_like(k)
-        for i, p in enumerate(per_layer(self.layers.tree(), cfg.n_layers)):
-            x, (k[i], v[i]) = self._layer(p, x, positions, bf16_reduce=cfg.bf16_reduce)
+        ks, vs = [], []
+        for p in per_layer(self.layers.tree(), cfg.n_layers):
+            x, (k, v) = self._layer(*self._gather(p, x), positions, bf16_reduce=cfg.bf16_reduce)
+            ks.append(k)
+            vs.append(v)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return self._logits(x[:, -1:]), {"k": k, "v": v, "len": t}
+        return self._logits(x[:, -1:]), {"k": torch.stack(ks), "v": torch.stack(vs), "len": t}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -235,7 +308,7 @@ class TransformerLM(_LM):
         cfg = self.cfg
         self._grow_check(cache, "k")
         new_len = cache["len"] + 1
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         positions = torch.full(tokens.shape, new_len - 1, device=x.device)
         for i, p in enumerate(per_layer(self.layers.tree(), cfg.n_layers)):
             # the reference's decode calls mlp_apply without bf16_reduce
@@ -277,6 +350,16 @@ class MambaLM(_LM):
         self.hybrid = cfg.family == "hybrid"
         self.n_apps = cfg.n_layers // cfg.shared_attn_every if self.hybrid else 0
 
+    def axes(self) -> dict:
+        """The logical-axis tree of the parameters (the reference's)."""
+        a = {"embed": ("vocab", "embed"),
+             "layers": _stacked({"block": M.mamba_block_axes(), "ln": (None,)}),
+             "final_norm": (None,), "lm_head": ("embed", "vocab")}
+        if self.hybrid:
+            a["shared"] = {"attn": L.attention_axes(self.cfg), "mlp": L.mlp_axes(),
+                           "ln1": (None,), "ln2": (None,)}
+        return a
+
     def _shared_attn(self, x, positions, cache=None, cache_len=None):
         cfg = self.cfg
         sp = self.shared.tree()
@@ -293,7 +376,7 @@ class MambaLM(_LM):
         """The remat body is one Mamba-2 layer; the hybrid's shared block
         runs outside it, as in the reference."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"].long()]
+        x = L.embed(self.embed, batch["tokens"].long())
         positions = _positions(*x.shape[:2], x.device)
 
         def layer(p, h):
@@ -310,14 +393,10 @@ class MambaLM(_LM):
     def prefill(self, tokens: torch.Tensor):
         """tokens (B,T) -> (logits of the last position (B,1,V), cache)."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         b, t = tokens.shape
         positions = _positions(b, t, x.device)
-        convs, ssds = [], []
-        cache = {}
-        if self.hybrid:
-            cache["ak"] = x.new_empty((self.n_apps, b, t, cfg.n_kv_heads, cfg.hd()))
-            cache["av"] = torch.empty_like(cache["ak"])
+        convs, ssds, aks, avs = [], [], [], []
         for i, p in enumerate(per_layer(self.layers.tree(), cfg.n_layers)):
             out, (conv, ssd) = M.mamba_apply(p["block"], L.rmsnorm(x, p["ln"], cfg.norm_eps),
                                              cfg)
@@ -325,10 +404,13 @@ class MambaLM(_LM):
             convs.append(conv)
             ssds.append(ssd)
             if self._is_app(i):
-                app = i // cfg.shared_attn_every
-                x, (cache["ak"][app], cache["av"][app]) = self._shared_attn(x, positions)
+                x, (ak, av) = self._shared_attn(x, positions)
+                aks.append(ak)
+                avs.append(av)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        cache.update(conv=torch.stack(convs), ssd=torch.stack(ssds), len=t)
+        cache = {"conv": torch.stack(convs), "ssd": torch.stack(ssds), "len": t}
+        if self.hybrid:
+            cache["ak"], cache["av"] = torch.stack(aks), torch.stack(avs)
         return x[:, -1:, :] @ self.lm_head, cache
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
@@ -356,7 +438,7 @@ class MambaLM(_LM):
         if self.hybrid:
             self._grow_check(cache, "ak")
         new_len = cache["len"] + 1
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         positions = torch.full(tokens.shape, new_len - 1, device=x.device)
         conv, ssd = cache["conv"], cache["ssd"]
         for i, p in enumerate(per_layer(self.layers.tree(), cfg.n_layers)):
@@ -403,17 +485,31 @@ class EncDecLM(_LM):
             "final_norm": _ones(cfg, (d,), dev),
         })
 
+    def axes(self) -> dict:
+        """The logical-axis tree of the parameters (the reference's)."""
+        attn = L.attention_axes(self.cfg)
+        mlp = L.mlp_axes(gated=False)
+        return {"embed": ("vocab", "embed"),
+                "enc_layers": _stacked({"attn": attn, "mlp": mlp, "ln1": (None,),
+                                        "ln2": (None,)}),
+                "dec_layers": _stacked({"self": attn, "cross": attn, "mlp": mlp,
+                                        "ln1": (None,), "ln2": (None,), "ln3": (None,)}),
+                "enc_norm": (None,), "final_norm": (None,)}
+
     def _attend(self, q, k, v):
         """Unmasked GQA attention (the encoder's and cross-attention's): f32
         scores and softmax; the output product stays in ``v.dtype``, as the
         reference's has no preferred type.  q (B,T,KV,G,hd) -> (B,T,H*hd)."""
-        b, t, _, _, hd = q.shape
+        b, t, kvh, g, hd = q.shape
         w = torch.softmax(L._gqa_scores_block(q, k, hd ** -0.5), dim=-1)
-        return torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype), v).reshape(b, t, -1)
+        out = torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype), v)
+        return L.merge_heads(out.reshape(b, t, kvh * g, hd))
 
     def _heads(self, q):
-        kvh = self.cfg.n_kv_heads
-        return q.reshape(*q.shape[:2], kvh, self.cfg.n_heads // kvh, self.cfg.hd())
+        """q (B,T,H*hd) or (B,T,H,hd) -> the grouped layout (B,T,KV,G,hd)."""
+        if q.ndim == 3:
+            q = L.split_heads(q, self.cfg.n_heads, self.cfg.hd())
+        return L.group_heads(q, self.cfg.n_kv_heads)
 
     def _encode(self, frames):
         """frames: (B, T_enc, d_model) stubbed frame embeddings; rope on the
@@ -438,14 +534,13 @@ class EncDecLM(_LM):
         (L, B, S, KV, HD).  The reference's ``_qkv`` also projects a query
         it drops; only K and V are computed here."""
         cfg = self.cfg
-        shape = (*enc_out.shape[:2], cfg.n_kv_heads, cfg.hd())
         ks, vs = [], []
         for p in per_layer(self.dec_layers.tree(), cfg.n_layers):
             k, v = enc_out @ p["cross"]["wk"], enc_out @ p["cross"]["wv"]
             if cfg.qkv_bias:
                 k, v = k + p["cross"]["bk"], v + p["cross"]["bv"]
-            ks.append(k.view(shape))
-            vs.append(v.view(shape))
+            ks.append(L.split_heads(k, cfg.n_kv_heads, cfg.hd()))
+            vs.append(L.split_heads(v, cfg.n_kv_heads, cfg.hd()))
         return torch.stack(ks), torch.stack(vs)
 
     def _dec_layer(self, p, h, positions, cross_k, cross_v, kv_cache=None, cache_len=None):
@@ -466,7 +561,7 @@ class EncDecLM(_LM):
     def loss(self, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         ck, cv = self._cross_kv(self._encode(batch["frames"]))
-        x = self.embed[batch["tokens"].long()]
+        x = L.embed(self.embed, batch["tokens"].long())
         positions = _positions(*x.shape[:2], x.device)
 
         def layer(p, h, k, v):
@@ -486,15 +581,17 @@ class EncDecLM(_LM):
             raise ValueError(f"{cfg.name}: an encoder-decoder's prefill needs frames "
                              f"(B, enc_len, d_model); it cannot run from tokens alone")
         ck, cv = self._cross_kv(self._encode(frames))
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         b, t = tokens.shape
         positions = _positions(b, t, x.device)
-        k = x.new_empty((cfg.n_layers, b, t, cfg.n_kv_heads, cfg.hd()))
-        v = torch.empty_like(k)
+        ks, vs = [], []
         for i, p in enumerate(per_layer(self.dec_layers.tree(), cfg.n_layers)):
-            x, (k[i], v[i]) = self._dec_layer(p, x, positions, ck[i], cv[i])
+            x, (k, v) = self._dec_layer(p, x, positions, ck[i], cv[i])
+            ks.append(k)
+            vs.append(v)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return self._logits(x[:, -1:]), {"k": k, "v": v, "ck": ck, "cv": cv, "len": t}
+        return self._logits(x[:, -1:]), {"k": torch.stack(ks), "v": torch.stack(vs),
+                                         "ck": ck, "cv": cv, "len": t}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -511,7 +608,7 @@ class EncDecLM(_LM):
         cfg = self.cfg
         self._grow_check(cache, "k")
         new_len = cache["len"] + 1
-        x = self.embed[tokens]
+        x = L.embed(self.embed, tokens)
         positions = torch.full(tokens.shape, new_len - 1, device=x.device)
         for i, p in enumerate(per_layer(self.dec_layers.tree(), cfg.n_layers)):
             x, _ = self._dec_layer(p, x, positions, cache["ck"][i], cache["cv"][i],
@@ -533,3 +630,13 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",
     if cfg.family not in _MODELS:
         raise ValueError(f"unknown family {cfg.family!r}")
     return _MODELS[cfg.family](cfg, device=dev, generator=generator)
+
+
+def meta_model(cfg: ModelConfig) -> nn.Module:
+    """The model of ``cfg`` on the meta device: its parameters' shapes and
+    dtypes and no data, nothing drawn (the counterpart of
+    ``jax.eval_shape(model.init)``, for the sharding specs and the dry
+    run)."""
+    if cfg.family not in _MODELS:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _MODELS[cfg.family](cfg, device=_META)

@@ -17,8 +17,14 @@ Trees are nested dicts of tensors.  The state is ``{"step", "master", "m",
 "v"}`` (and ``"residual"`` with gradient compression, ``train/steps.py``),
 each tree under the parameters' paths, so a ``{"params", "opt"}`` state
 flattens to the reference's names.  ``apply_updates`` returns new tensors
-and leaves its inputs as they are.  ZeRO-1 sharding (``state_specs``) needs
-a device mesh and waits for the sharding slice.
+and leaves its inputs as they are.
+
+On a device mesh the leaves are DTensors: ``state_specs`` gives the state
+the reference's ZeRO-1 layout (each leaf's parameter spec, plus its first
+free divisible dim over the data axes), and ``apply_updates`` brings each
+gradient to its state's layout first (a reduce-scatter or a slice), so the
+moments and the master weights update shard by shard, then gathers the new
+parameter back to the parameter's layout.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import dataclasses
 import torch
 
 from repro_torch.checkpoint import _tree
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,14 +47,6 @@ class AdamWConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     compression: str = "none"  # none | int8 | topk
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (nested dicts)."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
 
 
 def init_state(params: dict) -> dict:
@@ -71,7 +71,8 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     """One AdamW step; returns (new_params, new_state, metrics) with
     metrics ``grad_norm`` and ``lr`` (0-d f32 tensors)."""
     flat_p, tdef = _tree.flatten_with_path(params)
-    flat_g = _tree.leaves(grads)
+    flat_g = [_placed_like(g, mw) for g, mw in zip(_tree.leaves(grads),
+                                                    _tree.leaves(state["master"]))]
     gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in flat_g))
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
@@ -87,7 +88,7 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
         mhat = m2 / b1c
         vhat = v2 / b2c
         new_master = mw - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * mw)
-        return new_master.to(p.dtype), new_master, m2, v2
+        return _placed_like(new_master.to(p.dtype), p), new_master, m2, v2
 
     outs = [upd(p, *t) for (_, p), t in zip(
         flat_p, zip(flat_g, *(_tree.leaves(state[k]) for k in ("master", "m", "v"))))]
@@ -95,3 +96,38 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     new_state = {"step": step, **{k: _tree.unflatten(tdef, [o[i] for o in outs])
                                   for i, k in enumerate(("master", "m", "v"), 1)}}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``like``'s placements when both are DTensors
+    that differ; ``x`` otherwise."""
+    if getattr(x, "placements", None) is None or tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def state_specs(param_spec_tree: dict, param_shapes: dict, mesh, *, zero1: bool = True) -> dict:
+    """Optimizer-state specs: inherit the param spec, then ZeRO-1 shard the
+    first unsharded divisible dim over the data axes (the reference's
+    rule)."""
+    dp = sh.batch_axes(mesh)
+    sizes = sh.mesh_sizes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+
+    def one(spec, shape_leaf):
+        shape = tuple(shape_leaf.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        if zero1 and dp and not any(
+            (p == dp or p in dp or (isinstance(p, tuple) and set(dp) & set(p)))
+            for p in parts if p is not None
+        ):
+            for i, (dim, p) in enumerate(zip(shape, parts)):
+                if p is None and dim % dp_size == 0 and dim >= dp_size:
+                    parts[i] = dp if len(dp) > 1 else dp[0]
+                    break
+        return sh.P(*parts)
+
+    leaf_spec = tree_map(one, param_spec_tree, param_shapes)
+    return {"step": sh.P(), "master": leaf_spec, "m": leaf_spec, "v": leaf_spec}

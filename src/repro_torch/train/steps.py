@@ -67,10 +67,10 @@ def value_and_grad(model, params: dict, batch: dict):
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, device: str | torch.device = "cuda",
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None, *, model=None):
     """(model, train_step) for ``cfg`` on ``device``; the model holds the
-    seeded init (``params_of``)."""
-    model = build_model(cfg, device=device, generator=generator)
+    seeded init (``params_of``); ``model`` reuses a built model of ``cfg``."""
+    model = model or build_model(cfg, device=device, generator=generator)
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(model, params, batch)
@@ -98,8 +98,9 @@ def _prefill_inputs(batch: dict) -> dict:
 
 
 def make_prefill_step(cfg, device: str | torch.device = "cuda",
-                      generator: torch.Generator | None = None):
-    model = build_model(cfg, device=device, generator=generator)
+                      generator: torch.Generator | None = None, *, model=None):
+    """(model, prefill_step); ``model`` reuses a built model of ``cfg``."""
+    model = model or build_model(cfg, device=device, generator=generator)
 
     def prefill_step(params, batch):
         return torch.func.functional_call(
@@ -109,8 +110,9 @@ def make_prefill_step(cfg, device: str | torch.device = "cuda",
 
 
 def make_decode_step(cfg, device: str | torch.device = "cuda",
-                     generator: torch.Generator | None = None):
-    model = build_model(cfg, device=device, generator=generator)
+                     generator: torch.Generator | None = None, *, model=None):
+    """(model, decode_step); ``model`` reuses a built model of ``cfg``."""
+    model = model or build_model(cfg, device=device, generator=generator)
 
     def decode_step(params, cache, tokens):
         return torch.func.functional_call(model, _named(params),

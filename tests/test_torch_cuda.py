@@ -584,3 +584,90 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     assert abs(l1 - l0) <= 2e-4 * abs(l0) and abs(g1 - g0) <= 2e-4 * abs(g0)
     ssm = cfg.family in ("ssm", "hybrid")
     assert (counts["ssd_scan_bwd"] == cfg.n_layers) == ssm
+
+
+def test_mesh_train_step_on_card_matches_cpu(cuda):
+    """One train step of smoke mamba2 with its params, AdamW state and batch
+    as DTensors on the card's (1, 1) mesh (``make_host_mesh``: an NCCL group
+    of one) against the same step on the CPU, f32: loss, grad norm and every
+    new parameter at 2e-4 of its largest value; the SSD kernels launched
+    once per layer each way, through the scan's ``local_map``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import _tree
+    from repro_torch.data.pipeline import DataConfig, batch_for_step, batch_specs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig, state_specs
+    from repro_torch.train import steps
+
+    cfg = smoke(get_config("mamba2-1.3b"))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    dc = DataConfig(2, 19, cfg.vocab)
+    model, step = steps.make_train_step(cfg, opt_cfg, device="cpu",
+                                        generator=torch.Generator().manual_seed(1))
+    params = steps.params_of(model)
+    want_p, _, want = step(params, steps.init_opt_state(model, params, opt_cfg),
+                           batch_for_step(dc, cfg, 0, device="cpu"))
+    mesh = make_host_mesh(device_type="cuda")
+    try:
+        gmodel, gstep = steps.make_train_step(cfg, opt_cfg, device=cuda)
+        gparams = adamw.tree_map(lambda v: v.to(cuda), params)
+        pspecs = sh.param_specs(gparams, gmodel.axes(), mesh)
+        opt = steps.init_opt_state(gmodel, gparams, opt_cfg)
+        reset_launch_counts()
+        with sh.use_mesh(mesh):
+            got_p, _, got = gstep(sh.distribute(gparams, mesh, pspecs),
+                                  sh.distribute(opt, mesh, state_specs(pspecs, gparams, mesh)),
+                                  sh.distribute(batch_for_step(dc, cfg, 0, device=cuda), mesh,
+                                                batch_specs(dc, cfg, mesh)))
+        counts = launch_counts()
+        for key in ("loss", "grad_norm"):
+            g, w = float(got[key].full_tensor()), float(want[key])
+            assert abs(g - w) <= 2e-4 * abs(w), key
+        for (name, w), g in zip(_tree.flatten_with_path(want_p)[0], _tree.leaves(got_p)):
+            g = g.full_tensor().cpu()
+            assert float((g - w).abs().max()) <= 2e-4 * float(w.abs().max()) + 1e-30, name
+        assert counts["ssd_scan_bwd"] == cfg.n_layers and counts["ssd_scan"] == cfg.n_layers
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ssd_custom_ops_fake_shapes_match_the_kernel(cuda):
+    """The SSD operators' shape functions, on fake tensors, give the real
+    kernels' output shapes and dtypes (forward with and without the chunk
+    states, and the backward), in both layouts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    rng = np.random.default_rng(3)
+    for dtype, heads, h0 in ((torch.bfloat16, True, False), (torch.float32, False, True)):
+        bsz, t, nh, p, n, q = 2, 256, 4, 32, 64, 128
+        if heads:
+            shapes = [(bsz, t, nh, p), (bsz, t, nh), (nh,), (bsz, t, n), (bsz, t, n)]
+            h0_shape = (bsz, nh, n, p)
+        else:
+            shapes = [(bsz, t, p), (bsz, t), (bsz,), (bsz, t, n), (bsz, t, n)]
+            h0_shape = (bsz, n, p)
+        dts = [dtype, torch.float32, torch.float32, dtype, dtype]
+        args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, d)
+                for s, d in zip(shapes, dts)]
+        args[1] = args[1].abs() * 0.1
+        args[2] = -args[2].abs()
+        init = torch.zeros(h0_shape, device=cuda) if h0 else None
+        for keep in (False, True):
+            real = ssd.ssd_scan_op(*args, init, q, keep)
+            with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+                fake = ssd.ssd_scan_op(*(mode.from_tensor(a) for a in args),
+                                       None if init is None else mode.from_tensor(init),
+                                       q, keep)
+            assert [(tuple(r.shape), r.dtype, r.device.type) for r in real] == \
+                [(tuple(f.shape), f.dtype, f.device.type) for f in fake]
+        dy = torch.ones_like(real[0])
+        real_b = ssd.ssd_scan_bwd_op(*args, init, dy, None, real[2], q)
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake_b = ssd.ssd_scan_bwd_op(*(mode.from_tensor(a) for a in args),
+                                         None if init is None else mode.from_tensor(init),
+                                         mode.from_tensor(dy), None, mode.from_tensor(real[2]), q)
+        assert [(tuple(r.shape), r.dtype) for r in real_b] == \
+            [(tuple(f.shape), f.dtype) for f in fake_b]

@@ -31,6 +31,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing a module started a process group'\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -64,3 +66,19 @@ def test_default_device_is_cuda_and_raises_without_a_gpu(monkeypatch):
     cfg = ZapRaidConfig(device="cpu")  # asking for the CPU is the only way there
     arr = ZapRAIDArray(cfg, ZnsConfig(n_zones=8, zone_cap_blocks=64, block_bytes=256))
     assert arr.codec.device.type == "cpu"
+
+
+def test_sharding_entry_points_default_to_the_card(monkeypatch):
+    """``make_host_mesh`` and the dry run default to the card and raise
+    without a GPU; asking for the CPU is the only way there."""
+    import inspect
+
+    from repro_torch.launch import dryrun, mesh
+
+    assert inspect.signature(mesh.make_host_mesh).parameters["device_type"].default == "cuda"
+    assert inspect.signature(dryrun.run_cell).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--out", "unused"])

@@ -133,10 +133,15 @@ def test_attention_apply_refuses_a_full_cache_and_the_mesh_flags():
     with pytest.raises(ValueError, match="no room"):
         tl.attention_apply(tp, x, tcfg, positions=torch.zeros((1, 1)), kv_cache=(kc, kc.clone()),
                            cache_len=4)
+    # off a mesh the sharding flags change nothing, as in the reference
+    # (no ambient mesh: the blocked attention, no weight gather)
+    xs = torch.from_numpy(_normal(6, 2, 8, tcfg.d_model))
+    pos = torch.arange(8).expand(2, 8)
+    want, _ = tl.attention_apply(tp, xs, tcfg, positions=pos)
     for flag in ("attn_seq_shard", "fsdp_gather"):
         _, cfg = _cfgs("qwen2.5-3b", **{flag: True})
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tl.attention_apply(tp, x, cfg, positions=torch.zeros((1, 1)))
+        got, _ = tl.attention_apply(tp, xs, cfg, positions=pos)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("gated,dtype,tol", [(True, "float32", F32), (False, "float32", F32),

@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s reading of a kernel's SASS, on hand-written listings
 in ``cuobjdump -sass`` form (the card's toolkit is not here): the count of
 ALU instructions that sets the operations half of each codec kernel's bound,
-and the tensor-core instructions the SSD kernels must hold.  Also its FLOP
-counts of the SSD scan."""
+and the tensor-core instructions the SSD kernels must hold.  Also the SSD
+scan's FLOP and byte counts (``kernels/ssd_scan.py``) that its bounds read."""
 import importlib.util
 import subprocess
 import types
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ssd_scan as ssd
 
 _ROOT = Path(__file__).resolve().parents[1]
 
@@ -115,12 +116,11 @@ def test_tensor_core_instructions_raises_on_fma_only_kernels(monkeypatch):
 def test_ssd_flops_count_g_once_per_batch_row():
     """G = C B^T is shared by the heads of a batch row: adding heads adds
     only their own products."""
-    smoke = _smoke()
     q, n, p, nc = 128, 128, 64, 8
     tri = q * (q + 1) // 2
     per_head = nc * (2 * tri * p + 4 * q * n * p)
-    assert smoke.ssd_flops(4, 1, 1024, q, n, p) == 4 * (nc * 2 * tri * n + per_head)
-    assert smoke.ssd_flops(4, 64, 1024, q, n, p) - smoke.ssd_flops(4, 1, 1024, q, n, p) \
+    assert ssd.ssd_flops(4, 1, 1024, q, n, p) == 4 * (nc * 2 * tri * n + per_head)
+    assert ssd.ssd_flops(4, 64, 1024, q, n, p) - ssd.ssd_flops(4, 1, 1024, q, n, p) \
         == 4 * 63 * per_head
 
 
@@ -129,12 +129,11 @@ def test_ssd_tensor_flops_at_the_serving_shape():
     tiles, M X over the triangle's 36 and the state update over 8 x 8, each
     with two halves on four 8-column tiles: (64 + 36 + 64) x 8 -- and 576
     per G (36 tiles x 8 x 2), 4,096 FLOP each."""
-    smoke = _smoke()
     blocks, chunks, batch = 4 * 64 * 2, 8, 4
-    assert smoke.ssd_tensor_flops(4, 64, 1024, 128, 128, 64) \
+    assert ssd.ssd_tensor_flops(4, 64, 1024, 128, 128, 64) \
         == 4096 * chunks * (blocks * 1312 + batch * 576)
     # f32 inputs take three products where bf16 takes two (one for G)
-    assert smoke.ssd_tensor_flops(1, 1, 128, 128, 128, 32, f32=True) == 4096 * (1968 + 1728)
+    assert ssd.ssd_tensor_flops(1, 1, 128, 128, 128, 32, f32=True) == 4096 * (1968 + 1728)
 
 
 _XOR2 = "17stripe_xor_kernelILi2ELb1E"
@@ -465,7 +464,6 @@ def test_ssd_bwd_tensor_flops_at_the_training_shape():
     head 36 tiles x 4 p-tiles x 2 x (2 + 3) and 8 x 8 x 4 x 2 x 2 for B dH';
     the db/dc pass 8 x 4 x 4 x 5 per (batch, chunk, n-slice, head) and 8 x
     4 x 8 x 4 at its end -- 55.9 GFLOP, ~1.85x the 30.2 the function needs."""
-    smoke = _smoke()
     b, t, h, p, n, q = 4, 1024, 64, 64, 128, 128
     nc, mma = t // q, 4096
     dstate = b * h * 2 * nc * 8 * 8 * 12
@@ -473,10 +471,10 @@ def test_ssd_bwd_tensor_flops_at_the_training_shape():
     per_head = 36 * 4 * 2 * 5 + 8 * 8 * 4 * 2 * 2
     dbc = b * nc * 4 * (h * 8 * 4 * 4 * 5 + 8 * 4 * 8 * 4)
     want = mma * (dstate + gram_t + b * h * nc * per_head + dbc)
-    assert smoke.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4) == want == 55_868_129_280
-    assert want / smoke.ssd_bwd_flops(b, h, t, q, n, p) == pytest.approx(1.848, abs=1e-3)
+    assert ssd.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4) == want == 55_868_129_280
+    assert want / ssd.ssd_bwd_flops(b, h, t, q, n, p) == pytest.approx(1.848, abs=1e-3)
     # f32 inputs split x, b and c too: more products, never fewer
-    assert smoke.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4, f32=True) > want
+    assert ssd.ssd_bwd_tensor_flops(b, h, t, q, n, p, 4, f32=True) > want
 
 
 def test_ssd_bwd_bound_at_the_training_shape():
@@ -489,16 +487,16 @@ def test_ssd_bwd_bound_at_the_training_shape():
     smoke = _smoke()
     b, t, h, p, n, q = 4, 1024, 64, 64, 128, 128
     tri = q * (q + 1) // 2
-    assert smoke.ssd_bwd_flops(b, h, t, q, n, p) == (t // q) * (
+    assert ssd.ssd_bwd_flops(b, h, t, q, n, p) == (t // q) * (
         b * 2 * tri * n + b * h * (2 * 2 * tri * p + 2 * 2 * tri * n + 4 * 2 * q * n * p))
     x = torch.empty((b, t, h, p), dtype=torch.bfloat16)
     bc = torch.empty((b, t, n), dtype=torch.bfloat16)
     dt, a = torch.empty((b, t, h)), torch.empty(h)
     dy = torch.empty((b, t, h, p))
-    nbytes = smoke.ssd_bwd_bytes((x, dt, a, bc, bc, None, dy, None))
+    nbytes = ssd.ssd_bwd_bytes((x, dt, a, bc, bc, None, dy, None))
     assert nbytes == 2 * (2 * x.numel() + 4 * dt.numel() + 4 * h + 2 * 2 * bc.numel()) \
         + 4 * dy.numel() == 140_509_696
-    assert nbytes / smoke.HBM_BYTES_PER_S > smoke.ssd_bwd_flops(b, h, t, q, n, p) \
+    assert nbytes / smoke.HBM_BYTES_PER_S > ssd.ssd_bwd_flops(b, h, t, q, n, p) \
         / smoke.BF16_TENSOR_FLOP_PER_S
 
 
@@ -527,3 +525,30 @@ def test_training_phases_rehearse_on_the_cpu():
     ph = smoke.Phase("train_families")
     smoke.train_families(ph, "cpu")
     assert len(ph.info["archs"]) == 10
+
+
+def test_sharded_phases_rehearse_on_the_cpu(tmp_path):
+    """``sharded_train`` after ``mamba2_train`` at smoke size on the CPU's
+    (1, 1) gloo mesh (the same losses and leaf norms, bit for bit), and
+    ``dryrun`` over two worker processes for two cells and a skip."""
+    import torch.distributed as dist
+
+    from repro_torch.models.config import smoke as smoke_cfg
+
+    smoke = _smoke()
+    spec = dict(smoke.TRAIN, steps=2, global_batch=2, seq_len=20)
+    argv = ["--arch", "mamba2-1.3b", "--steps", "2", "--global-batch", "2", "--seq-len", "20",
+            "--ckpt-every", "5"]
+    ph = smoke.Phase("mamba2_train")
+    smoke.mamba2_train(ph, "cpu", spec, argv)
+    want = ph.info
+    ph = smoke.Phase("sharded_train")
+    smoke.sharded_train(ph, want, "cpu", spec, shrink=smoke_cfg)
+    assert ph.info["losses"] == want["losses"] and ph.info["losses_bit_equal"]
+    assert ph.info["leaf_norms_bit_equal"] and ph.info["mesh"] == {"data": 1, "model": 1}
+    assert not dist.is_initialized()
+    ph = smoke.Phase("dryrun")
+    rows = smoke.dryrun_phase(ph, tmp_path, device="cpu", workers=2, multi=(),
+                              archs=["mamba2-1.3b", "smollm-135m"], shapes=["long_500k"])
+    assert sorted(r["status"] for r in rows) == ["ok", "skip"]
+    assert ph.info["ok"] == 1 and ph.info["skip"] == 1

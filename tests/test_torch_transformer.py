@@ -111,10 +111,13 @@ def test_vis_embeds_only_for_a_vlm_and_the_sharding_flags_raise():
     model = build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="vis_embeds"):
         model.prefill(torch.zeros((1, 4), dtype=torch.long), vis_embeds=torch.zeros(1, 2, 8))
+    # the sharding flags need a mesh to act; off one they change nothing
+    tokens = torch.arange(8).reshape(2, 4)
+    want, _ = model.prefill(tokens)
     for flag in ("attn_seq_shard", "fsdp_gather"):
-        bad = build_model(dataclasses.replace(cfg, **{flag: True}), device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
-            bad.prefill(torch.zeros((1, 4), dtype=torch.long))
+        other = build_model(dataclasses.replace(cfg, **{flag: True}), device="cpu")
+        got, _ = other.prefill(tokens)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert L.MASKED == -1e30
 
 
