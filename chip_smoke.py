@@ -3,8 +3,10 @@
 its timed pipeline, serving every model family (Mamba-2, dense, MoE, VLM,
 the zamba2 hybrid, whisper), the block service, erasure-coded checkpoints
 and optimizer state, and training (mamba2-1.3b at full width on the SSD
-scan's forward and backward kernels, also on a device mesh, checkpointed
-restarts, every family), and the multi-pod dry run of every architecture.
+scan's forward and backward kernels, also on a device mesh whose sharded
+state is checkpointed and erasure-coded, checkpointed restarts, every
+family), the multi-pod dry run of every architecture, and the reference's
+examples on the port.
 
 Run from the root of a checkout, with no arguments::
 
@@ -123,19 +125,37 @@ failing on the first error:
    (the card's (1, 1) mesh, an NCCL group of one) under ``use_mesh``: its
    losses and final per-leaf norms must equal ``mamba2_train``'s
    (``RESTART_TOL``; it prints whether they are bit-equal), its step time,
-   tokens/s and peak memory beside them; ``dryrun`` runs the port's dry run
+   tokens/s and peak memory beside them; ``sharded_ckpt`` runs on that
+   mesh before it is torn down: the trained DTensors of layers 0 and 1
+   (parameters and AdamW's master, m and v, ~727 MB) through
+   ``launch/train.py``'s RAID-5 engine, saved at step 4 and restored with
+   lane 1 failed into the same DTensors (placements kept, global values
+   bit-exact; save and restore MiB/s), and ``state_parity``'s ZeRO-1 shards
+   of AdamW's m and v (11.57 GB) as DTensors placed as the trained m is,
+   encoded with m = 1 and 2 (rows equal to the plain tensors') and rank 2
+   rebuilt (DTensors, bit-exact), CUDA-event ms beside the plain phase's;
+   it must launch ``xor_reduce``, ``stripe_xor`` and ``stripe_gf256``;
+   ``dryrun`` runs the port's dry run
    (``launch/dryrun.py``) of every architecture at full width on the
    256-way production mesh and of the three FSDP ones on the 512-way one
    (``DRYRUN``), over worker processes, one line per cell (per-device
    parameter and state bytes, roofline terms, collectives, SSD custom-op
-   calls), and fails unless every cell ``cell_supported`` allows reads "ok"
-   and every other "skip"; ``mamba2_grad_check`` holds the loss's gradients
+   calls, ``memory_analysis``), and fails unless every cell
+   ``cell_supported`` allows reads "ok" and every other "skip";
+   ``mamba2_grad_check`` holds the loss's gradients
    through the kernels to those through the plain scan (2 layers, f32,
    ``TRAIN_GRAD_TOL``); ``train_ckpt`` runs the reference's default
    training run (``TRAIN_CKPT``: RAID-5 checkpoints on the card's codec, a
    failed lane, a restart) and the same with a degraded restore, and the
    recomputed steps must repeat their losses; ``train_families`` takes one
-   train step of every architecture at smoke size.
+   train step of every architecture at smoke size;
+12. examples -- the reference's ten examples on the port
+   (``examples/port_*.py``, ``EXAMPLES``), each through its ``main`` on the
+   card and on the CPU at the reference's sizes: every byte and virtual-time
+   output equal (a training run's losses within ``EXAMPLE_LOSS_TOL``), each
+   run's wall time, launches and last line printed, its lines written to
+   ``build/examples/``; ``port_degraded_restore`` must launch
+   ``gf256_matmul`` (its RAID-6 decode) and ``stripe_xor``.
 
 Each phase prints one JSON line.  The codec kernels' launch counts are
 zeroed just before phase 2 and read just after phase 4 (``launches``), and
@@ -148,7 +168,9 @@ again just before phase 8 and read just after phase 10's runs
 launched there.  All of them are zeroed again just before ``mamba2_train``
 and read just after it (``train_launches``; ``launches`` of
 ``ssd_scan_bwd``), just before and after ``sharded_train``
-(``sharded_train_launches``: 96 / 96 / 48 per step, as unsharded), and just
+(``sharded_train_launches``: 96 / 96 / 48 per step, as unsharded), just
+before and after ``sharded_ckpt`` (``sharded_ckpt_launches``: those of its
+calls on DTensors, its checks against plain tensors left out), and just
 before and after ``train_ckpt``'s two runs (``train_ckpt_launches``).  The
 ``kernels`` line reports them all.
 The last two lines are the card's name and power limit and the
@@ -301,12 +323,26 @@ TRAIN_CKPT = ["--arch", "smollm-135m", "--steps", "20", "--ckpt-every", "5",
 TRAIN_CKPT_RUNS = {"default": TRAIN_CKPT,
                    "degraded_restore": TRAIN_CKPT[:9] + ["11"] + TRAIN_CKPT[10:]}
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)
+# The checkpoint engine on sharded_train's trained DTensors: the first
+# ``layers`` of mamba2-1.3b's 48 layers, parameters (bf16) and AdamW's
+# master, m and v (f32), ~727 MB, saved at ``step`` on launch/train.py's
+# engine (RAID-5, 4 lanes) with zones sized for it, lane ``fail`` failed
+# for the restore.
+SHARDED_CKPT = dict(layers=2, step=4, fail=1,
+                    geom=dict(zones=64, zone_cap_blocks=4096, logical_blocks=1 << 18))
 # The dry run (launch/dryrun.py) of every architecture at full width on the
 # 256-way production mesh, and of ``multi`` on the 512-way one (the three
 # FSDP configurations, which exist to be sharded), over ``workers`` processes.
 DRYRUN = dict(multi=("qwen1.5-110b", "grok-1-314b", "llama4-scout-17b-a16e"), workers=8)
 # One train step of every architecture at smoke size on the card.
 FAMILY_STEP = dict(global_batch=2, seq_len=16)
+# The reference's ten examples on the port (examples/port_*.py), each run on
+# the card and on the CPU at the reference's sizes; a training run's losses
+# agree between the two within the serving card tests' tolerance.
+EXAMPLES = ("quickstart", "trace_replay", "degraded_restore", "train_e2e", "serve",
+            "ckpt_under_serving", "warm_cache_degraded", "trace_and_metrics",
+            "degraded_writes", "scrub_repair")
+EXAMPLE_LOSS_TOL = dict(rtol=2e-4, atol=0.0)
 
 
 def _die(msg: str) -> int:
@@ -2495,7 +2531,7 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
 
 
 def sharded_train(ph: Phase, want: dict, device: str = "cuda", spec: dict = TRAIN,
-                  shrink=None) -> dict:
+                  shrink=None) -> tuple[dict, dict]:
     """``mamba2_train``'s run on a device mesh: the same model (seed 0),
     AdamW and batches, the parameters, AdamW state and each batch distributed
     as DTensors by ``param_specs``, ``state_specs`` and ``batch_specs`` on
@@ -2504,13 +2540,14 @@ def sharded_train(ph: Phase, want: dict, device: str = "cuda", spec: dict = TRAI
     final parameters' per-leaf norms must equal ``want``'s (``mamba2_train``'s
     report) within ``RESTART_TOL``; whether they are bit-equal is printed.
     Returns the kernel launches since they were last zeroed, which the
-    caller does just before; the process group is torn down after."""
+    caller does just before, and the trained state on its mesh ({``mesh``,
+    ``params``, ``opt``}) for ``sharded_ckpt``; the caller tears the process
+    group down after (``end_mesh``), or this does if it fails."""
     import math
     import statistics
 
     import numpy as np
     import torch
-    import torch.distributed as dist
     from repro_torch.checkpoint import _tree
     from repro_torch.data.pipeline import DataConfig, batch_for_step, batch_specs
     from repro_torch.distributed import sharding as sh
@@ -2548,10 +2585,9 @@ def sharded_train(ph: Phase, want: dict, device: str = "cuda", spec: dict = TRAI
         counts = launch_counts()  # read just after the run
         norms = leaf_norms(dparams)
         placements = sorted({str(tuple(p.placements)) for p in _tree.leaves(dparams)})
-        del dparams, dopt
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    except BaseException:
+        end_mesh()
+        raise
     if not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"sharded training: losses {losses}, grad norms {gnorms}")
     if not np.allclose(losses, want["losses"], **RESTART_TOL):
@@ -2584,7 +2620,154 @@ def sharded_train(ph: Phase, want: dict, device: str = "cuda", spec: dict = TRAI
         "unsharded_peak_mem_bytes": want.get("peak_mem_bytes"),
         "launches_per_step": {k: v / spec["steps"] for k, v in counts.items() if v},
     })
-    return counts
+    return counts, {"mesh": mesh, "params": dparams, "opt": dopt}
+
+
+def end_mesh() -> None:
+    """Tear down the process group of ``sharded_train``'s mesh."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def layer_slice(tree: dict, n: int) -> dict:
+    """The ``layers`` subtree of a parameter-shaped tree, each leaf (stacked
+    over the layers) cut to its first ``n`` layers: DTensors stay DTensors."""
+    def cut(node):
+        return {k: cut(v) for k, v in node.items()} if isinstance(node, dict) else node[:n]
+
+    return {"layers": cut(tree["layers"])}
+
+
+def sharded_ckpt(ph: Phase, trained: dict, shapes: dict, plain: dict, device: str = "cuda",
+                 spec: dict = SHARDED_CKPT, seed: int = SEED) -> dict:
+    """The checkpoint engine and the state parity on ``sharded_train``'s
+    trained DTensors, on its mesh.
+
+    ``ckpt``: the first ``spec["layers"]`` layers of the parameters and of
+    AdamW's master, m and v, and AdamW's step, as the DTensors stand,
+    saved at step ``spec["step"]`` on ``launch/train.py``'s engine (RAID-5,
+    4 lanes, zones of ``spec["geom"]``), lane ``spec["fail"]`` failed, and
+    restored degraded into the same DTensors: every restored leaf must be a
+    DTensor with the saved leaf's mesh and placements and a global value
+    equal bit for bit; save and restore MiB/s on the host clock.
+
+    ``state_parity``: the ``state_parity`` phase's ZeRO-1 rank shards of
+    AdamW's m and v for parameters of ``shapes`` (from ``seed``), each
+    placed as a DTensor on the mesh -- a rank's 1-d cut of a leaf split over
+    the mesh dims the trained m leaf is split over (``adamw.state_specs``'s
+    placements), replicated over the others.  ``encode_shards`` with m = 1
+    and 2 (each run twice, the first dropped, as there) must give parity
+    rows equal to those of the same plain tensors, and rank
+    ``PARITY["lost"]``'s rebuild must be DTensors placed as its shards with
+    their global values bit-exact; CUDA-event wall ms beside the plain
+    phase's (``plain``, that phase's info).  Returns the kernel launches of
+    the calls on DTensors alone (the save, the restore, the encodes and the
+    rebuilds); the checks against plain tensors run outside that count."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from repro_torch.checkpoint import _tree
+    from repro_torch.checkpoint.state_parity import encode_shards, reconstruct_shard
+    from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import convert
+
+    cuda = device == "cuda"
+    mesh, dparams, dopt = trained["mesh"], trained["params"], trained["opt"]
+    launched = dict.fromkeys(launch_counts(), 0)
+
+    def counted(fn):
+        """``fn()``, its kernel launches added to ``launched``."""
+        before = launch_counts()
+        out = fn()
+        for k, v in launch_counts().items():
+            launched[k] += v - before[k]
+        return out
+
+    def same_dtensors(got, want, what):
+        for (name, w), g in zip(_tree.flatten_with_path(want)[0], _tree.leaves(got)):
+            if not (isinstance(g, DTensor) and g.device_mesh == w.device_mesh
+                    and g.placements == w.placements
+                    and _bits_equal(g.full_tensor(), w.full_tensor())):
+                raise AssertionError(f"sharded_ckpt: {what}: {name} differs from the saved "
+                                     "DTensor")
+
+    n = spec["layers"]
+    state = {"params": layer_slice(dparams, n),
+             "opt": {"step": dopt["step"], **{k: layer_slice(dopt[k], n)
+                                             for k in ("master", "m", "v")}}}
+    leaves = _tree.leaves(state)
+    nbytes = sum(_tree.leaf_meta(leaf)[2] for leaf in leaves)
+    geom = spec["geom"]
+    eng = CheckpointEngine(CheckpointConfig(n_lanes=4, scheme="raid5", group_size=8,
+                                            block_bytes=BLOCK_BYTES,
+                                            zone_cap_blocks=geom["zone_cap_blocks"],
+                                            n_zones=geom["zones"], device=device),
+                           logical_blocks=geom["logical_blocks"])
+    _sync(device)
+    t = time.perf_counter()
+    counted(lambda: eng.save(spec["step"], state))
+    _sync(device)
+    save_s = time.perf_counter() - t
+    save_stats = eng.stats()
+    eng.fail_lane(spec["fail"])
+    t = time.perf_counter()
+    got = counted(lambda: eng.restore(spec["step"], state))
+    _sync(device)
+    restore_s = time.perf_counter() - t
+    same_dtensors(got, state, f"restore with lane {spec['fail']} failed")
+    del got
+    ph.info["ckpt"] = {
+        "layers": n, "leaves": len(leaves), "bytes": nbytes, "step": spec["step"],
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "placements": sorted({str(tuple(leaf.placements)) for leaf in leaves}),
+        "save_s": save_s, "save_mib_s": nbytes / 2**20 / save_s,
+        "failed_lane": spec["fail"], "degraded_restore_s": restore_s,
+        "degraded_restore_mib_s": nbytes / 2**20 / restore_s,
+        "degraded_reads": eng.array.stats.degraded_reads, "save_stats": save_stats,
+        "stats": eng.stats(), "restored": "DTensors, placements kept, bit-exact"}
+    del eng, state, leaves
+
+    k, lost = PARITY["k"], PARITY["lost"]
+    split = {path.replace("/", "."):  # by the names of ``shapes``
+             [Shard(0) if isinstance(p, Shard) else Replicate() for p in leaf.placements]
+             for path, leaf in convert._flatten(dopt["m"]).items()}
+    opt = optimizer_state(shapes, seed, device)
+    plain_ranks = [{"m": a, "v": b} for a, b in zip(zero1_shards(opt["m"], k),
+                                                     zero1_shards(opt["v"], k))]
+    del opt
+    ranks = [{s: {name: distribute_tensor(t, mesh, split[name], src_data_rank=None)
+                  for name, t in tree.items()} for s, tree in r.items()} for r in plain_ranks]
+    info = {"k": k, "lost_rank": lost,
+            "placements": sorted({str(tuple(p)) for p in split.values()}),
+            "leaves_per_rank": sum(len(tree) for tree in ranks[0].values())}
+    for m in (1, 2):
+        first_ms = _wall_ms(lambda: counted(lambda: encode_shards(ranks, m=m)), cuda)[1]
+        parity, ms = _wall_ms(lambda: counted(lambda: encode_shards(ranks, m=m)), cuda)
+        for s, tree in plain_ranks[0].items():  # leaf by leaf: one leaf's rows at a time
+            for name in tree:
+                want = encode_shards([{name: r[s][name]} for r in plain_ranks], m=m)
+                for j, row in enumerate(want):
+                    g = parity[j][s][name]
+                    if isinstance(g, DTensor) or not torch.equal(g, row[name]):
+                        raise AssertionError(f"sharded state parity m={m}: row {j} {s}/{name} "
+                                             "differs from the plain tensors' row")
+                del want
+        rec, rebuild_ms = _wall_ms(lambda: counted(lambda: reconstruct_shard(
+            lost, {r: ranks[r] for r in range(k) if r != lost}, parity, k)), cuda)
+        for s in ("m", "v"):
+            same_dtensors(rec[s], ranks[lost][s], f"rank {lost} rebuilt with m={m}")
+        del rec, parity
+        info[f"m{m}"] = {"encode_wall_ms": ms, "first_encode_wall_ms": first_ms,
+                         "reconstruct_wall_ms": rebuild_ms,
+                         "plain_encode_wall_ms": plain[f"m{m}"]["encode_wall_ms"],
+                         "plain_reconstruct_wall_ms": plain[f"m{m}"]["reconstruct_wall_ms"],
+                         "parity": "equal to the plain tensors'", "rebuilt": "bit-exact"}
+    if cuda:
+        info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    ph.info["state_parity"] = info
+    return launched
 
 
 def dryrun_phase(ph: Phase, out: Path, device: str = "cuda", workers: int | None = None,
@@ -2622,6 +2805,8 @@ def dryrun_phase(ph: Phase, out: Path, device: str = "cuda", workers: int | None
                "collectives": {k: [v["count"], v["bytes"]]
                                for k, v in roof.get("collectives", {}).items()},
                "ssd_calls": r.get("ssd_calls"), "n_ops": r.get("n_ops"),
+               "memory_analysis": r.get("memory_analysis"),
+               "hbm_bytes": roof.get("hbm_bytes"),
                **({"error": r["error"]} if r["status"] == "fail" else {})})
         if r["status"] != ("ok" if ok else "skip"):
             bad.append((r["arch"], r["shape"], r["mesh"], r["status"], r.get("error")))
@@ -2769,6 +2954,83 @@ def train_families(ph: Phase, device: str = "cuda") -> None:
     ph.info["archs"] = out
 
 
+# ------------------------------------------------------------ the examples
+
+def example_main(name: str):
+    """``main`` of ``examples/port_<name>.py``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"port_{name}",
+                                                  ROOT / "examples" / f"port_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _example_differences(name: str, got: dict, want: dict) -> list[str]:
+    """The keys of an example's outputs on the card (``got``) that differ
+    from the CPU's (``want``): all of them equal, but a training run's
+    losses, which agree within ``EXAMPLE_LOSS_TOL``."""
+    import numpy as np
+
+    bad = [k for k in want if k != "losses" and not _same(got.get(k), want[k])]
+    bad += [k for k in got if k not in want]
+    if "losses" in want and not (len(got["losses"]) == len(want["losses"]) and np.allclose(
+            got["losses"], want["losses"], **EXAMPLE_LOSS_TOL)):
+        bad.append("losses")
+    return bad
+
+
+def examples_phase(ph: Phase, device: str = "cuda", out: Path = ROOT / "build" / "examples",
+                   names: tuple = EXAMPLES) -> None:
+    """Each of ``examples/port_*.py`` (``names``) through its ``main`` on
+    ``device`` and on the CPU, at the reference's sizes: every output of the
+    card's run must equal the CPU's (``_example_differences``).  Prints each
+    run's wall time, its kernel launches and its last line (each run's lines
+    go to ``out/<name>_<device>.txt``).  ``port_degraded_restore`` must launch
+    ``gf256_matmul`` (its RAID-6 decode) and ``stripe_xor`` on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import launch_counts
+
+    out.mkdir(parents=True, exist_ok=True)
+    info = {}
+    for name in names:
+        main = example_main(name)
+        row = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            argv = ["--device", dev]
+            if name in ("trace_and_metrics", "scrub_repair"):
+                argv += ["--out", str(out / dev)]
+            before = launch_counts()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = main(argv)
+            _sync(dev)
+            wall = time.perf_counter() - t
+            after = launch_counts()
+            (out / f"{name}_{dev}.txt").write_text(buf.getvalue())
+            row[dev] = {"res": res, "wall_s": wall,
+                        "launches": {k: after[k] - before[k] for k in after
+                                     if after[k] > before[k]},
+                        "last_line": buf.getvalue().strip().splitlines()[-1]}
+        bad = _example_differences(name, row[device]["res"], row["cpu"]["res"])
+        if bad:
+            raise AssertionError(f"port_{name}: {device} and cpu differ in {bad}")
+        info[name] = {"wall_s": row[device]["wall_s"], "cpu_wall_s": row["cpu"]["wall_s"],
+                      "launches": row[device]["launches"], "outputs": "equal",
+                      "last_line": row[device]["last_line"]}
+    if device == "cuda":
+        launched = info["degraded_restore"]["launches"]
+        for kernel in ("gf256_matmul_batch", "parity_xor"):
+            if not launched.get(kernel):
+                raise AssertionError(f"port_degraded_restore did not launch {kernel}: "
+                                     f"{launched}")
+    ph.info["examples"] = info
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2896,6 +3158,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("state_parity") as ph:
         largest = state_parity_phase(shapes, SEED, ph)
+    plain_parity = ph.info
     ckpt_path = launch_counts()  # read just after the three phases
     idle = [k for k in CODEC_KERNELS if ckpt_path[k] == 0]
     if idle:
@@ -2921,8 +3184,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reset_launch_counts()  # the sharded training run's launches start here
-    with Phase("sharded_train") as ph:
-        sharded_path = sharded_train(ph, unsharded)
+    try:
+        with Phase("sharded_train") as ph:
+            sharded_path, trained = sharded_train(ph, unsharded)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launch_counts()  # the sharded checkpoint's launches start here
+        with Phase("sharded_ckpt") as ph:  # counts its DTensor calls' launches alone
+            sharded_ckpt_path = sharded_ckpt(ph, trained, shapes, plain_parity)
+        idle = [k for k in ("parity_xor_batch", "parity_xor", "gf256_matmul")
+                if sharded_ckpt_path[k] == 0]
+        if idle:
+            raise AssertionError(f"sharded_ckpt never launched {idle}: {sharded_ckpt_path}")
+        del trained
+    finally:
+        end_mesh()
     gc.collect()
     torch.cuda.empty_cache()
     with Phase("dryrun") as ph:
@@ -2939,6 +3215,8 @@ def main() -> int:
         train_families(ph)
     gc.collect()
     torch.cuda.empty_cache()
+    with Phase("examples") as ph:
+        examples_phase(ph)
 
     for r in rows:
         r["launches"] = main_path[r["name"]]
@@ -2953,10 +3231,11 @@ def main() -> int:
         r["train_launches"] = train_path[r["name"]]
         r["train_ckpt_launches"] = train_ckpt_path[r["name"]]
         r["sharded_train_launches"] = sharded_path[r["name"]]
+        r["sharded_ckpt_launches"] = sharded_ckpt_path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_launches",
             "ckpt_launches", "hybrid_launches", "train_launches", "train_ckpt_launches",
-            "sharded_train_launches")
+            "sharded_train_launches", "sharded_ckpt_launches")
     _emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

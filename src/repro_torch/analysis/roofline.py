@@ -12,6 +12,11 @@ tensors on a fake process group (``launch/dryrun.py``), recorded by
   op is recorded as the local ops it runs);
 * HBM bytes: each operator's input and output bytes, views excluded -- the
   traffic of an eager step, which fuses nothing;
+* live bytes: each storage an operator's outputs hold that none of its
+  inputs shares (a new allocation) is counted from that operator until the
+  storage is freed; ``peak_bytes`` is the most alive at once, the step's
+  temporaries and outputs beyond its arguments, and ``live_at_peak(outputs)``
+  the outputs' part of it, which XLA's ``temp_size_in_bytes`` leaves out;
 * collectives: each ``torch.ops._c10d_functional`` call (what DTensor
   issues) with its result bytes B and group size S, and its ring cost on
   the wire:
@@ -28,9 +33,12 @@ over one link's rate.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # H100 SXM5 (NVIDIA H100 data sheet): dense bf16 tensor-core FLOP/s and
@@ -140,6 +148,10 @@ class Recorder(TorchDispatchMode):
         self.n_ops = 0
         self.collectives: dict[str, CollectiveStat] = {}
         self.watch = {str(w): 0 for w in watch}
+        self.live_bytes = 0  # of the storages recorded ops allocated, still alive
+        self.peak_bytes = 0
+        self._live: dict[int, tuple[weakref.ref, int]] = {}  # storage: (ref, op it came from)
+        self._peak_op = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -150,6 +162,7 @@ class Recorder(TorchDispatchMode):
         if "FakeTensor" in names:
             return out
         self.n_ops += 1
+        self._allocated(args, out)
         packet = func._overloadpacket
         if str(packet) in self.watch:
             self.watch[str(packet)] += 1
@@ -161,6 +174,41 @@ class Recorder(TorchDispatchMode):
         if not func.is_view:
             self.bytes += _nbytes(args) + _nbytes(out)
         return out
+
+    def _allocated(self, args, out) -> None:
+        """Count the storages of ``out`` that no argument shares (views and
+        in-place results share theirs), each until it is freed."""
+        outs = list(_tensors(out))
+        if not outs:
+            return
+        inputs = {t.untyped_storage()._cdata for t in _tensors(args)}
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in inputs or key in self._live:
+                continue
+            n = st.nbytes()
+            self._live[key] = (weakref.ref(st, functools.partial(self._freed, key, n)),
+                               self.n_ops)
+            self.live_bytes += n
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes, self._peak_op = self.live_bytes, self.n_ops
+
+    def live_at_peak(self, tree) -> int:
+        """Bytes of the tallied storages that ``tree``'s tensors (a DTensor's
+        local shard) hold and that were alive at the peak: those allocated by
+        then, since what ``tree`` holds is still alive."""
+        keys = set()
+        for t in _tensors(tree):
+            key = (t.to_local() if isinstance(t, DTensor) else t).untyped_storage()._cdata
+            entry = self._live.get(key)
+            if entry is not None and entry[1] <= self._peak_op:
+                keys.add(key)
+        return sum(self._live[k][0]().nbytes() for k in keys)
+
+    def _freed(self, key: int, n: int, _ref) -> None:
+        if self._live.pop(key, None) is not None:
+            self.live_bytes -= n
 
     def _collective(self, func, out, args) -> None:
         name = func._opname.rstrip("_").removesuffix("_coalesced")

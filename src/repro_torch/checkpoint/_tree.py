@@ -21,6 +21,14 @@ A leaf's bytes and metadata follow numpy's view of it (``np.asarray``): the
 dtype's name (``float32``, ``bfloat16``, ``int64`` for a Python ``int``),
 the shape, and the raw bytes in C order.  A ``torch.bfloat16`` tensor is
 read through a byte view, since numpy may have no ``bfloat16``.
+
+A ``DTensor`` leaf (sharded state on a device mesh) is its global value,
+``full_tensor()``, as the reference's ``np.asarray`` gathers a mesh-sharded
+array: the same global values save the same bytes, manifest and virtual
+times whatever the placements and the mesh size.  Rebuilt into a DTensor
+``like`` leaf, a leaf is that global value laid out on ``like``'s mesh with
+its placements, each rank keeping its own shard of the bytes it read (the
+reference gives back numpy there; the bytes and the global shape agree).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _SEQUENCES = (list, tuple)
 
@@ -118,8 +127,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def global_value(leaf):
+    """A DTensor's global value (a collective on a mesh of many ranks), any
+    other leaf as it is."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def leaf_meta(leaf) -> tuple[str, list[int], int]:
-    """(dtype name, shape, nbytes) of a leaf, as numpy sees it."""
+    """(dtype name, shape, nbytes) of a leaf, as numpy sees it (a DTensor's
+    global shape)."""
     if isinstance(leaf, torch.Tensor):
         return (_torch_dtype_name(leaf.dtype), list(leaf.shape),
                 leaf.numel() * leaf.element_size())
@@ -129,7 +145,8 @@ def leaf_meta(leaf) -> tuple[str, list[int], int]:
 
 def host_bytes(leaf) -> np.ndarray:
     """A leaf's bytes in C order as a 1-d numpy uint8 array (a tensor on the
-    card is copied to the host)."""
+    card is copied to the host; a DTensor's global value)."""
+    leaf = global_value(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
     return np.ascontiguousarray(np.asarray(leaf)).reshape(-1).view(np.uint8)
@@ -137,7 +154,9 @@ def host_bytes(leaf) -> np.ndarray:
 
 def leaf_bytes(leaf) -> torch.Tensor:
     """A leaf's bytes in C order as a 1-d uint8 tensor on the leaf's device
-    (the CPU for numpy arrays and scalars); a view where it can be."""
+    (the CPU for numpy arrays and scalars; a DTensor's global value, on its
+    mesh's device); a view where it can be."""
+    leaf = global_value(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().contiguous().reshape(-1).view(torch.uint8)
     raw = host_bytes(leaf)
@@ -148,7 +167,12 @@ def leaf_from_bytes(raw: torch.Tensor, dtype: str, shape, like, *, copy: bool = 
     """Rebuild a leaf from its bytes (a 1-d uint8 tensor, exactly its
     ``nbytes``): a tensor of ``dtype`` on ``like``'s device if ``like`` is a
     tensor (a view of ``raw`` when it is there already and ``copy`` is
-    false), else a numpy array of ``dtype`` (an owned copy)."""
+    false), a DTensor on ``like``'s mesh with its placements if ``like`` is
+    a DTensor, else a numpy array of ``dtype`` (an owned copy)."""
+    if isinstance(like, DTensor):
+        full = raw.to(like.device).view(torch_dtype(dtype)).reshape(shape)
+        # every rank holds the whole leaf: each keeps its own shard, no scatter
+        return distribute_tensor(full, like.device_mesh, like.placements, src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return raw.to(like.device, copy=copy).view(torch_dtype(dtype)).reshape(shape)
     return raw.cpu().numpy().copy().view(np.dtype(dtype)).reshape(shape)

@@ -16,7 +16,10 @@ are viewed in place and the kernels run on device memory.
 
 Outputs follow the inputs: a parity leaf is uint8 of the padded length and a
 rebuilt leaf has the template leaf's dtype and shape, each as a tensor on the
-leaf's device where the leaf is a tensor, else as a numpy array.
+leaf's device where the leaf is a tensor, else as a numpy array.  A DTensor
+leaf (state sharded on a device mesh) is encoded by its global value
+(``_tree``): its parity leaf is a plain uint8 tensor on the mesh's device,
+and a rebuilt leaf is a DTensor placed as the template leaf is.
 """
 from __future__ import annotations
 
@@ -62,9 +65,10 @@ def encode_shards(shards: list, m: int = 1) -> list:
             p = ops.rs_encode(lanes, m)
         nbytes = _tree.leaf_meta(leaves[0])[2]
         padded = nbytes + (-nbytes) % 4
+        # a parity row is a plain tensor on the leaves' device, or numpy
+        like = lanes if isinstance(leaves[0], torch.Tensor) else leaves[0]
         for j in range(m):
-            parity_leaves[j].append(
-                _lanes_to_leaf(p[j], "uint8", (padded,), padded, leaves[0]))
+            parity_leaves[j].append(_lanes_to_leaf(p[j], "uint8", (padded,), padded, like))
     return [_tree.unflatten(treedef, pl) for pl in parity_leaves]
 
 

@@ -10,7 +10,8 @@ specs (``distributed/sharding.py``), whose local shards are meta tensors --
 shapes and dtypes, no storage (``models.model.meta_model``, drawing
 nothing) -- and the train, prefill or decode step runs once to warm
 DTensor's caches and once more with ``analysis.roofline.Recorder`` on, which
-counts the rank's FLOPs and bytes and the collectives DTensor issues.  A
+counts the rank's FLOPs and bytes and the collectives DTensor issues, and
+tallies the bytes it allocates (``memory_analysis``, below).  A
 meta tensor runs each operator's shape function (the SSD scan's custom
 operators' too, ``kernels/ssd_scan.py``, counted per call) without
 ``FakeTensorMode``'s per-operator Python layer, which made a cell ~3.7x
@@ -21,6 +22,24 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu --arch smollm-135m --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all              # every cell
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi # 512 devices
+
+A cell's ``memory_analysis`` holds three of the reference's fields
+(``compiled.memory_analysis()``), for one rank:
+
+* ``argument_size_in_bytes``: the placed inputs' local bytes (each DTensor's
+  ``to_local()``; a non-tensor leaf, a cache's ``len``, as the reference's
+  int32 scalar);
+* ``output_size_in_bytes``: the step's outputs' local bytes, counted the
+  same way;
+* ``temp_size_in_bytes``: the peak of live bytes the recorded step
+  allocated beyond its arguments, tallied in ``analysis.roofline.Recorder``'s
+  dispatch mode (each new storage from its operator until it is freed),
+  less the outputs' storages alive at that peak, which XLA's figure leaves
+  out too.
+
+The reference's ``generated_code_size_in_bytes`` and ``hlo_bytes`` measure
+a compiled XLA executable and its HLO text.  An eager step has neither, so
+the port records neither rather than a stand-in.
 
 Results are written incrementally to ``experiments/dryrun_torch/*.json``
 (one file per cell x mesh; the reference writes ``experiments/dryrun``);
@@ -39,8 +58,10 @@ import time
 import traceback
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.analysis import roofline as rl
+from repro_torch.checkpoint import _tree
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.raid import check_device
 from repro_torch.distributed import sharding as sh
@@ -192,6 +213,18 @@ def cell_inputs(cfg, cell, mesh, opt_overrides=None) -> dict:
             "state_dev_bytes": state_bytes, "analytic_hbm": analytic_hbm}
 
 
+def local_bytes(tree) -> int:
+    """Bytes one rank holds of a tree of step inputs or outputs: each
+    DTensor's local shard, each tensor whole, any other leaf (a cache's
+    ``len``) the reference's int32 scalar."""
+    total = 0
+    for leaf in _tree.leaves(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.to_local()
+        total += leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor) else 4
+    return total
+
+
 def _run_and_analyze(cfg, cell, mesh, n_dev, opt_overrides=None) -> dict:
     run = cell_inputs(cfg, cell, mesh, opt_overrides)
     rec = rl.Recorder(watch=SSD_OPS)
@@ -202,7 +235,10 @@ def _run_and_analyze(cfg, cell, mesh, n_dev, opt_overrides=None) -> dict:
         # the recorded step then does not see.
         run["fn"](*run["args"])
         with rec:
-            run["fn"](*run["args"])
+            out = run["fn"](*run["args"])
+    memory = {"argument_size_in_bytes": local_bytes(run["args"]),
+              "output_size_in_bytes": local_bytes(out),
+              "temp_size_in_bytes": rec.peak_bytes - rec.live_at_peak(out)}
 
     report = rec.report(analytic_hbm_bytes=run["analytic_hbm"])
     model_fl = rl.model_flops_per_step(cfg, cell)
@@ -214,6 +250,7 @@ def _run_and_analyze(cfg, cell, mesh, n_dev, opt_overrides=None) -> dict:
         "active_param_count": cfg.active_param_count(),
         "param_dev_bytes": run["param_dev_bytes"],
         "state_dev_bytes": run["state_dev_bytes"],
+        "memory_analysis": memory,
         "roofline": report.to_dict(),
         "model_flops_step": model_fl,
         "model_flops_dev": per_dev_model_fl,

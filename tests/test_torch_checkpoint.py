@@ -262,3 +262,125 @@ def test_state_parity_matches_reference(m):
         rec = PORT.parity.reconstruct_shard(1, {0: shards[0], 3: shards[3]}, pb, k)
         for name, leaf in shards[1].items():
             assert torch.equal(rec[name], leaf)
+
+
+# ------------------------------------------------- DTensor (sharded) state
+
+@pytest.fixture
+def mesh11():
+    """A 1-rank gloo (1, 1) ("data", "model") mesh on the CPU, torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield make_host_mesh(device_type="cpu")
+    dist.destroy_process_group()
+
+
+def _dtensor_state(pkg, mesh=None, seed=5):
+    """``{"w": randn(8, 6), "b": arange(5.)}``: in the reference as
+    ``NamedSharding`` arrays on ``jax.make_mesh((1, 1))`` (P("data", None)
+    and P()), in the port as DTensors placed [Shard(0), Replicate()] and
+    [Replicate(), Replicate()] on ``mesh``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((8, 6)).astype(np.float32)
+    b = np.arange(5, dtype=np.float32)
+    if pkg is JAX:
+        from jax.sharding import NamedSharding
+        from jax.sharding import PartitionSpec as JP
+
+        jm = jax.make_mesh((1, 1), ("data", "model"))
+        return {"w": jax.device_put(jnp.asarray(w), NamedSharding(jm, JP("data", None))),
+                "b": jax.device_put(jnp.asarray(b), NamedSharding(jm, JP()))}
+    return {"w": distribute_tensor(torch.from_numpy(w), mesh, [Shard(0), Replicate()]),
+            "b": distribute_tensor(torch.from_numpy(b), mesh, [Replicate(), Replicate()])}
+
+
+def _global(tree):
+    """A tree with each DTensor leaf replaced by its global value."""
+    from torch.distributed.tensor import DTensor
+
+    flat, treedef = _tree.flatten_with_path(tree)
+    return _tree.unflatten(treedef, [leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+                                     for _, leaf in flat])
+
+
+def _restored_dtensors(eng, step, state):
+    """The port's restore of ``step`` into ``state``'s DTensors: DTensors on
+    the same mesh with the same placements, their global values equal to
+    the saved ones bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    out = eng.restore(step, state)
+    for (name, want), (_, got) in zip(_tree.flatten_with_path(state)[0],
+                                      _tree.flatten_with_path(out)[0]):
+        assert isinstance(got, DTensor), name
+        assert got.device_mesh == want.device_mesh and got.placements == want.placements, name
+        assert _bits(got.full_tensor()) == _bits(want.full_tensor()), name
+    return _global(out)
+
+
+@pytest.mark.parametrize("failed", [(), (1,)], ids=["healthy", "lane1_failed"])
+def test_dtensor_state_round_trip_matches_reference(mesh11, failed):
+    """A checkpoint of DTensor leaves puts the reference's bytes on the
+    media and its manifest in the log (the reference's save of the same
+    global values as mesh-sharded arrays); restored healthy or with lane 1
+    failed, and again after a crash remount, each leaf is a DTensor with the
+    ``like`` leaf's mesh and placements."""
+    def run(pkg):
+        eng, state = _engine(pkg), _dtensor_state(pkg, mesh11)
+        eng.save(3, state)
+        for lane in failed:
+            eng.fail_lane(lane)
+        out = _restored_dtensors(eng, 3, state) if pkg is PORT else eng.restore(3, state)
+        eng2 = eng.crash_and_remount()
+        again = _restored_dtensors(eng2, 3, state) if pkg is PORT else eng2.restore(3, state)
+        _same_tree_bits(out, again)
+        return eng2, out
+
+    eng = _both(run)
+    assert eng.catalog[3]["leaves"]["['w']"]["shape"] == [8, 6]
+    assert (eng.array.stats.degraded_reads > 0) == bool(failed)
+
+
+def _dtensor_shards(mesh, k=4, seed=0):
+    """``_shards``'s rank trees as DTensors: 2-d leaves [Shard(0), Shard(1)],
+    1-d leaves [Shard(0), Replicate()]."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    def place(t):
+        return distribute_tensor(t, mesh, [Shard(0), Shard(1) if t.ndim == 2 else Replicate()])
+
+    return [{n: place(t) for n, t in s.items()} for s in _shards(PORT, k, seed)]
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_state_parity_over_dtensor_shards_matches_reference(mesh11, m):
+    """``encode_shards`` / ``reconstruct_shard`` over DTensor rank shards
+    equal the reference over the same global values: the parity leaves are
+    plain uint8 tensors, the rebuilt leaves DTensors placed as the
+    template's."""
+    from torch.distributed.tensor import DTensor
+
+    k, lost = 4, 2
+    jshards = _shards(JAX, k)
+    jpar = JAX.parity.encode_shards(jshards, m=m, use_pallas=False)
+    jrec = JAX.parity.reconstruct_shard(lost, {r: jshards[r] for r in range(k) if r != lost},
+                                        jpar, k, use_pallas=False)
+    shards = _dtensor_shards(mesh11, k)
+    parity = PORT.parity.encode_shards(shards, m=m)
+    assert len(parity) == m
+    for a, b in zip(jpar, parity):
+        assert all(type(v) is torch.Tensor and v.dtype == torch.uint8 for v in b.values())
+        _same_tree_bits(a, b)
+    rec = PORT.parity.reconstruct_shard(lost, {r: shards[r] for r in range(k) if r != lost},
+                                        parity, k)
+    for name, want in shards[lost].items():
+        assert isinstance(rec[name], DTensor) and rec[name].placements == want.placements
+        assert torch.equal(rec[name].full_tensor(), want.full_tensor())
+    _same_tree_bits(jrec, _global(rec))

@@ -452,6 +452,96 @@ def test_checkpoint_engine_restores_card_tensors(cuda):
         assert out[k].is_cuda and out[k].dtype == v.dtype and torch.equal(out[k], v)
 
 
+@pytest.fixture
+def card_mesh(cuda):
+    """The card's (1, 1) mesh (an NCCL group of one), torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    yield make_host_mesh(device_type="cuda")
+    dist.destroy_process_group()
+
+
+def _card_dtensor_state(mesh):
+    """f32, bf16 and int32 leaves on the card, as DTensors placed
+    [Shard(0), Replicate()], [Shard(0), Shard(0)] and [Replicate(),
+    Replicate()]; and the same values as plain CPU tensors."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    rng = np.random.default_rng(8)
+    host = {"w": torch.from_numpy(rng.standard_normal((40, 24)).astype(np.float32)),
+            "m": torch.from_numpy(rng.standard_normal(333).astype(np.float32)).to(torch.bfloat16),
+            "step": torch.tensor(4, dtype=torch.int32)}
+    places = {"w": [Shard(0), Replicate()], "m": [Shard(0), Shard(0)],
+              "step": [Replicate(), Replicate()]}
+    card = {k: distribute_tensor(v.to("cuda"), mesh, places[k], src_data_rank=None)
+            for k, v in host.items()}
+    return card, host
+
+
+def test_checkpoint_engine_restores_dtensors_on_the_card(card_mesh):
+    """A RAID-5 engine on the card saves DTensors on the card's mesh: the
+    media equal a CPU engine's save of the same plain values; restored with
+    lane 1 failed, each leaf is a DTensor placed as saved, on the card, its
+    global value bit-equal; the group kernel launched."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
+    from repro_torch.core.zns import drive_images
+
+    def engine(device):
+        cfg = CheckpointConfig(n_lanes=4, scheme="raid5", group_size=8, block_bytes=512,
+                               zone_cap_blocks=256, n_zones=32, chunk_blocks=2, device=device)
+        return CheckpointEngine(cfg, logical_blocks=1 << 12)
+
+    card, host = _card_dtensor_state(card_mesh)
+    a, b = engine("cuda"), engine("cpu")
+    reset_launch_counts()
+    a.save(1, card)
+    b.save(1, host)
+    assert launch_counts()["parity_xor_batch"] > 0
+    for x, y in zip(drive_images(a.array.drives), drive_images(b.array.drives), strict=True):
+        assert x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+    assert np.array_equal(a._manifest_blocks(), b._manifest_blocks())
+    a.fail_lane(1)
+    out = a.restore(1, card)
+    assert a.array.stats.degraded_reads > 0
+    for k, v in card.items():
+        assert isinstance(out[k], DTensor) and out[k].placements == v.placements
+        assert out[k].to_local().is_cuda
+        assert torch.equal(out[k].full_tensor().cpu(), host[k])
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_state_parity_over_dtensors_on_the_card_equals_the_cpu(card_mesh, m):
+    """``encode_shards`` / ``reconstruct_shard`` over DTensor shards on the
+    card: parity rows plain uint8 tensors on the card, equal to the CPU's
+    plain path on the same values; the rebuilt leaves DTensors placed as the
+    template's, bit-exact; the single-stripe kernel launched."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.checkpoint import state_parity as sp
+
+    k, lost = 4, 2
+    host = _parity_shards("cpu", k)
+    card = [{n: distribute_tensor(t.to("cuda"), card_mesh,
+                                  [Shard(0), Shard(1) if t.ndim == 2 else Replicate()],
+                                  src_data_rank=None) for n, t in s.items()} for s in host]
+    reset_launch_counts()
+    pc, ph = sp.encode_shards(card, m=m), sp.encode_shards(host, m=m)
+    rec = sp.reconstruct_shard(lost, {r: card[r] for r in range(k) if r != lost}, pc, k)
+    torch.cuda.synchronize()
+    assert launch_counts()["gf256_matmul" if m == 2 else "parity_xor"] > 0
+    for a, b in zip(pc, ph):
+        for name in a:
+            assert type(a[name]) is torch.Tensor and a[name].is_cuda
+            assert torch.equal(a[name].cpu(), b[name])
+    for name, leaf in card[lost].items():
+        assert isinstance(rec[name], DTensor) and rec[name].placements == leaf.placements
+        assert torch.equal(rec[name].full_tensor().cpu(), host[lost][name])
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama4-scout-17b-a16e", "paligemma-3b",
                                   "zamba2-2.7b", "whisper-small"])
 def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):

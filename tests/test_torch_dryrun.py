@@ -10,6 +10,7 @@ to end on a fake 256-way mesh at smoke width on the CPU."""
 import dataclasses
 import functools
 import json
+import math
 import os
 
 import jax
@@ -184,3 +185,76 @@ def test_run_cell_at_smoke_width_on_a_256_way_mesh(fresh_group, tmp_path, arch, 
     again = dryrun.run_cell(arch, shape, False, tmp_path, device="cpu")
     assert again == json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
     assert again["wall_s"] == r["wall_s"]
+
+
+def _rank0_bytes(tree) -> int:
+    """Rank 0's bytes of a tree of step inputs or outputs, from each leaf's
+    global shape and placements: a ``Shard(d)`` over a mesh dim of size k
+    leaves rank 0 the first ceil(n / k) of dim d's n (``torch.chunk``); a
+    plain tensor is whole, anything else (a cache's ``len``) an int32."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.checkpoint import _tree
+
+    total = 0
+    for leaf in _tree.leaves(tree):
+        if not isinstance(leaf, torch.Tensor):
+            total += 4
+            continue
+        shape = list(leaf.shape)
+        if isinstance(leaf, DTensor):
+            for k, p in zip(leaf.device_mesh.shape, leaf.placements):
+                if isinstance(p, Shard):
+                    shape[p.dim] = -(-shape[p.dim] // k)
+        total += math.prod(shape) * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("arch,shape", [("smollm-135m", "train_4k"),
+                                        ("mamba2-1.3b", "decode_32k")])
+def test_run_cell_records_memory_analysis(fresh_group, tmp_path, arch, shape):
+    """The cell records the reference's ``memory_analysis`` fields: the
+    placed inputs' bytes on rank 0, the step's outputs' bytes, and the peak
+    of the live bytes the recorded step allocated, less the outputs alive
+    then; a train step gives back parameters and optimizer state laid out
+    as it took them."""
+    small = smoke(get_config(arch))
+    overrides = {f.name: getattr(small, f.name) for f in dataclasses.fields(small)
+                 if getattr(small, f.name) != getattr(get_config(arch), f.name)}
+    r = dryrun.run_cell(arch, shape, False, tmp_path, cfg_overrides=overrides, device="cpu")
+    assert r["status"] == "ok", r.get("traceback")
+    ma = r["memory_analysis"]
+    assert set(ma) == {"argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes"}
+    run = dryrun.cell_inputs(small, shapes.SHAPES[shape], make_production_mesh(device_type="cpu"))
+    assert ma["argument_size_in_bytes"] == _rank0_bytes(run["args"])
+    assert ma["temp_size_in_bytes"] > 0 and ma["output_size_in_bytes"] > 0
+    if shape == "train_4k":  # (params, opt, batch) in, (params, opt, metrics) out
+        state = _rank0_bytes(run["args"][:2])
+        assert state <= ma["output_size_in_bytes"] < state + 1024
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_recorder_tallies_live_bytes_to_the_byte(device):
+    """``Recorder``'s live bytes on a step whose allocations and frees are
+    known: a and b live (8,000 B), a view of b and an in-place op on it
+    allocate nothing, a freed, c taken (the peak: b + c = 10,000 B), c
+    freed, e taken (5,000 B).  At the peak the outputs b and e held only
+    b, so their part of it is 4,000 B."""
+    rec = roof.Recorder()
+    with rec:
+        a = torch.ones(1000, device=device)  # 4,000 B
+        b = a * 2  # 4,000 B
+        view = b[::2]
+        b.add_(1)
+        view.mul_(3)
+        assert rec.live_bytes == 8000
+        del a
+        assert rec.live_bytes == 4000
+        c = torch.zeros(750, dtype=torch.float64, device=device)  # 6,000 B
+        d = c.sum()  # 8 B, freed with c
+        del c, d, view
+        assert rec.live_bytes == 4000
+        e = torch.empty(250, device=device)  # 1,000 B
+    assert (rec.live_bytes, rec.peak_bytes) == (5000, 10008)
+    assert rec.live_at_peak([b, e]) == 4000
+    assert rec.live_at_peak({"e": e}) == 0

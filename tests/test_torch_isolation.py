@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU fallback."""
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU fallback --
+in the package and in its examples (``examples/port_*.py``)."""
 import ast
 import os
 import subprocess
@@ -14,6 +15,7 @@ from repro_torch.core.zns import ZnsConfig
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
+EXAMPLES = SRC.parent / "examples"
 
 
 def _modules():
@@ -40,8 +42,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("path,name", list(_modules()), ids=lambda v: str(v))
-def test_no_jax_or_repro_imports_in_source(path, name):
+def _assert_no_jax_or_repro_imports(path, name):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -52,6 +53,16 @@ def test_no_jax_or_repro_imports_in_source(path, name):
             continue
         for mod in mods:
             assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), (name, mod)
+
+
+@pytest.mark.parametrize("path,name", list(_modules()), ids=lambda v: str(v))
+def test_no_jax_or_repro_imports_in_source(path, name):
+    _assert_no_jax_or_repro_imports(path, name)
+
+
+@pytest.mark.parametrize("path", sorted(EXAMPLES.glob("port_*.py")), ids=lambda p: p.name)
+def test_no_jax_or_repro_imports_in_port_examples(path):
+    _assert_no_jax_or_repro_imports(path, path.name)
 
 
 def test_default_device_is_cuda_and_raises_without_a_gpu(monkeypatch):
@@ -82,3 +93,17 @@ def test_sharding_entry_points_default_to_the_card(monkeypatch):
         mesh.make_host_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--out", "unused"])
+
+
+@pytest.mark.parametrize("path", sorted(EXAMPLES.glob("port_*.py")), ids=lambda p: p.name)
+def test_port_examples_default_to_the_card(path, monkeypatch):
+    """Every port example takes ``--device``, ``cuda`` unless the CPU is asked
+    for, and raises without a GPU."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])

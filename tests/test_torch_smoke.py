@@ -529,10 +529,15 @@ def test_training_phases_rehearse_on_the_cpu():
 
 def test_sharded_phases_rehearse_on_the_cpu(tmp_path):
     """``sharded_train`` after ``mamba2_train`` at smoke size on the CPU's
-    (1, 1) gloo mesh (the same losses and leaf norms, bit for bit), and
-    ``dryrun`` over two worker processes for two cells and a skip."""
+    (1, 1) gloo mesh (the same losses and leaf norms, bit for bit), then
+    ``sharded_ckpt`` on its trained DTensors (a degraded restore into them,
+    state parity over DTensor shards beside the ``state_parity`` phase on
+    the same seed) before the mesh is torn down, ``dryrun`` over two worker
+    processes for two cells and a skip, and ``examples`` (every port
+    example once on the CPU)."""
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.models.config import smoke as smoke_cfg
 
     smoke = _smoke()
@@ -542,13 +547,47 @@ def test_sharded_phases_rehearse_on_the_cpu(tmp_path):
     ph = smoke.Phase("mamba2_train")
     smoke.mamba2_train(ph, "cpu", spec, argv)
     want = ph.info
-    ph = smoke.Phase("sharded_train")
-    smoke.sharded_train(ph, want, "cpu", spec, shrink=smoke_cfg)
-    assert ph.info["losses"] == want["losses"] and ph.info["losses_bit_equal"]
-    assert ph.info["leaf_norms_bit_equal"] and ph.info["mesh"] == {"data": 1, "model": 1}
+    weights = smoke.mamba2_weights(smoke.SEED, "cpu", cfg=smoke_cfg(get_config("mamba2-1.3b")))
+    shapes = {k: w.shape for k, w in weights.items()}
+    plain = smoke.Phase("state_parity")
+    smoke.state_parity_phase(shapes, smoke.SEED, plain, "cpu")
+    try:
+        ph = smoke.Phase("sharded_train")
+        _, trained = smoke.sharded_train(ph, want, "cpu", spec, shrink=smoke_cfg)
+        assert ph.info["losses"] == want["losses"] and ph.info["losses_bit_equal"]
+        assert ph.info["leaf_norms_bit_equal"] and ph.info["mesh"] == {"data": 1, "model": 1}
+        ph = smoke.Phase("sharded_ckpt")
+        geom = dict(zones=16, zone_cap_blocks=256, logical_blocks=4096)
+        launched = smoke.sharded_ckpt(ph, trained, shapes, plain.info, "cpu",
+                                      spec=dict(smoke.SHARDED_CKPT, geom=geom))
+    finally:
+        smoke.end_mesh()
     assert not dist.is_initialized()
+    from repro_torch.kernels import launch_counts
+
+    assert launched == dict.fromkeys(launch_counts(), 0)  # the CPU launches no kernel
+    ckpt, parity = ph.info["ckpt"], ph.info["state_parity"]
+    assert ckpt["leaves"] == 1 + 4 * 13 and ckpt["degraded_reads"] > 0
+    assert ckpt["stats"]["saves"] == 1 and ckpt["save_mib_s"] > 0
+    for m in (1, 2):
+        assert parity[f"m{m}"]["rebuilt"] == "bit-exact"
+        assert parity[f"m{m}"]["plain_encode_wall_ms"] == plain.info[f"m{m}"]["encode_wall_ms"]
     ph = smoke.Phase("dryrun")
     rows = smoke.dryrun_phase(ph, tmp_path, device="cpu", workers=2, multi=(),
                               archs=["mamba2-1.3b", "smollm-135m"], shapes=["long_500k"])
     assert sorted(r["status"] for r in rows) == ["ok", "skip"]
     assert ph.info["ok"] == 1 and ph.info["skip"] == 1
+
+
+def test_examples_phase_rehearses_on_the_cpu(tmp_path):
+    """``examples``: every port example through its ``main`` on the CPU,
+    each run's lines written under ``out``."""
+    smoke = _smoke()
+    ph = smoke.Phase("examples")
+    smoke.examples_phase(ph, "cpu", out=tmp_path)
+    info = ph.info["examples"]
+    assert list(info) == list(smoke.EXAMPLES)
+    assert all(row["outputs"] == "equal" and row["wall_s"] > 0 for row in info.values())
+    assert info["ckpt_under_serving"]["last_line"].startswith("QoS cuts the serving tenant")
+    assert (tmp_path / "cpu" / "port_scrub_metrics.json").exists()
+    assert len(list(tmp_path.glob("*_cpu.txt"))) == 10
