@@ -1,0 +1,8 @@
+"""The card's idle share of the traced training steps (%): one minus the
+union of device intervals (kernels, copies, sets) over the traced window."""
+
+
+def read(rec):
+    if rec.driver != "train" or rec.trace is None:
+        return None
+    return 100 * (1 - rec.trace.busy_s / rec.trace.window_s)
