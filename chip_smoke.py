@@ -119,9 +119,9 @@ failing on the first error:
    trains mamba2-1.3b at full width (``TRAIN``) through
    ``launch.train.run``: step wall time, trained tokens/s, peak memory,
    finite losses and gradient norms, the SSD kernels' launches per step
-   (96 forward under remat, 48 backward) and one step under
-   ``torch.profiler``; ``sharded_train`` trains the same run again with the
-   parameters, AdamW state and batches as DTensors on ``make_host_mesh()``
+   (96 forward under remat, 48 backward); ``sharded_train`` trains the
+   same run again with the parameters, AdamW state and batches as
+   DTensors on ``make_host_mesh()``
    (the card's (1, 1) mesh, an NCCL group of one) under ``use_mesh``: its
    losses and final per-leaf norms must equal ``mamba2_train``'s
    (``RESTART_TOL``; it prints whether they are bit-equal), its step time,
@@ -300,13 +300,12 @@ PARITY = dict(k=4, lost=2, plain_leaves=8, plain_bytes=1 << 20)
 SSD_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # Training mamba2-1.3b at full width through the entry point
 # (launch/train.py): steps of global_batch x seq_len tokens, bf16 with remat
-# as configured; profile_step is run under torch.profiler.  The gradient
-# check: full width, ``layers`` layers, f32, a ragged seq_len, the loss's
-# gradients through the kernels against those through the plain SSD scan,
-# per leaf over its largest value (floor: GRAD_FLOOR of the largest of all);
-# the forward kernel's f32 operands carry ~16 bits (SSD_TOL).
-TRAIN = dict(arch="mamba2-1.3b", steps=4, global_batch=4, seq_len=1024, ckpt_every=5,
-             profile_step=2)
+# as configured.  The gradient check: full width, ``layers`` layers, f32, a
+# ragged seq_len, the loss's gradients through the kernels against those
+# through the plain SSD scan, per leaf over its largest value (floor:
+# GRAD_FLOOR of the largest of all); the forward kernel's f32 operands carry
+# ~16 bits (SSD_TOL).
+TRAIN = dict(arch="mamba2-1.3b", steps=4, global_batch=4, seq_len=1024, ckpt_every=5)
 TRAIN_GRAD = dict(layers=2, batch=2, seq_len=250)
 TRAIN_GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-7
@@ -2487,9 +2486,8 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
     wall time, trained tokens/s, peak device memory, finite losses and
     gradient norms, the SSD kernels' launches per step (zeroed just before
     the run, read just after: under remat each layer's forward scan runs
-    twice, once in the backward's recompute), and one profiled step's device
-    time by kernel and idle share.  Returns the launch counts since they
-    were last zeroed, which the caller does just before."""
+    twice, once in the backward's recompute).  Returns the launch counts
+    since they were last zeroed, which the caller does just before."""
     import math
     import statistics
 
@@ -2498,7 +2496,7 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
     from repro_torch.launch import train
 
     argv = argv or _train_argv(spec)
-    rep = {"profile_step": spec["profile_step"]} if device == "cuda" else {}
+    rep = {}
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     losses = train.run(argv + ["--device", device], report=rep)
@@ -2515,7 +2513,7 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
         if device == "cuda" and n != want.get(name, 0):
             raise AssertionError(f"training launched {name} {n} times, want "
                                  f"{want.get(name, 0)}: {counts}")
-    steady = [s for i, s in enumerate(rep["step_s"]) if i not in (0, spec["profile_step"])]
+    steady = rep["step_s"][1:]
     step_s = statistics.median(steady)
     ph.info.update({
         "arch": cfg.name, "params": rep["params"], "dtype": cfg.dtype, "remat": cfg.remat,
@@ -2525,7 +2523,7 @@ def mamba2_train(ph: Phase, device: str = "cuda", spec: dict = TRAIN, argv=None)
         "steady_step_ms": 1e3 * step_s, "trained_tok_s": rep["tokens_per_step"] / step_s,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
         "launches_per_step": {k: v / steps for k, v in counts.items() if v},
-        "profile": rep.get("profile"), "leaf_norms": rep.get("leaf_norms"),
+        "leaf_norms": rep.get("leaf_norms"),
     })
     return counts
 

@@ -51,6 +51,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.raid import check_device
 from repro_torch.models.config import smoke
 from repro_torch.models.model import build_model
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass
@@ -113,30 +114,32 @@ def serve(model, queue: Sequence[np.ndarray], *, batch: int, gen_len: int,
             torch.cuda.synchronize(dev)
 
     while pending:
-        take = [pending.pop(0) for _ in range(min(batch, len(pending)))]
-        prompts = take + [take[-1]] * (batch - len(take))  # pad batch with repeats
-        tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
-        sync()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(tokens)
-        grow_cache(cache, gen_len)
-        sync()
-        t1 = time.perf_counter()
-        st.prefill_s += t1 - t0
-        st.prefill_calls += 1
-        st.prefill_tokens += tokens.numel()
-        tok = choose(logits)
-        outs = [tok]
-        for _ in range(gen_len - 1):
-            logits, cache = model.decode_step(cache, tok)
+        with spans.span(spans.SERVE):
+            take = [pending.pop(0) for _ in range(min(batch, len(pending)))]
+            prompts = take + [take[-1]] * (batch - len(take))  # pad batch with repeats
+            tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+            sync()
+            t0 = time.perf_counter()
+            with spans.span(spans.PREFILL):
+                logits, cache = model.prefill(tokens)
+            grow_cache(cache, gen_len)
+            sync()
+            t1 = time.perf_counter()
+            st.prefill_s += t1 - t0
+            st.prefill_calls += 1
+            st.prefill_tokens += tokens.numel()
             tok = choose(logits)
-            outs.append(tok)
-            st.decode_tokens += tok.shape[0]
-        sync()
-        st.decode_s += time.perf_counter() - t1
-        gen = torch.cat(outs, dim=1).cpu().numpy()
-        st.outputs.extend(gen[: len(take)])
-        st.requests += len(take)
+            outs = [tok]
+            for _ in range(gen_len - 1):
+                logits, cache = model.decode_step(cache, tok)
+                tok = choose(logits)
+                outs.append(tok)
+                st.decode_tokens += tok.shape[0]
+            sync()
+            st.decode_s += time.perf_counter() - t1
+            gen = torch.cat(outs, dim=1).cpu().numpy()
+            st.outputs.extend(gen[: len(take)])
+            st.requests += len(take)
     return st
 
 

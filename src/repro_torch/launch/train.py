@@ -32,8 +32,6 @@ from __future__ import annotations
 import argparse
 import time
 
-import torch
-
 from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
 from repro_torch.configs import get_config
 from repro_torch.core.raid import check_device
@@ -65,10 +63,9 @@ def run(argv=None, *, init_params: dict | None = None, report: dict | None = Non
 
     ``report``, a dict, receives what a caller measures: ``step_s`` (wall
     seconds of each step, ending with the loss on the host), ``grad_norm``,
-    ``tokens_per_step``, ``params`` (count), the ``engine`` stats,
+    ``tokens_per_step``, ``params`` (count), the ``engine`` stats and
     ``leaf_norms`` (the f32 norm of each final parameter, by its tree
-    path), and, when ``report["profile_step"]`` names a step, ``profile``
-    (that step under ``torch.profiler``)."""
+    path)."""
     args = parse_args(argv)
     dev = check_device(args.device)
     cfg = get_config(args.arch)
@@ -97,10 +94,7 @@ def run(argv=None, *, init_params: dict | None = None, report: dict | None = Non
     while step < args.steps:
         batch = batch_for_step(dc, cfg, step, device=dev)
         ts = time.perf_counter()
-        if rep.get("profile_step") == step:
-            params, opt_state, metrics = _profiled(rep, train_step, params, opt_state, batch)
-        else:
-            params, opt_state, metrics = train_step(params, opt_state, batch)
+        params, opt_state, metrics = train_step(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         rep["step_s"].append(time.perf_counter() - ts)
         rep["grad_norm"].append(float(metrics["grad_norm"]))
@@ -139,29 +133,6 @@ def leaf_norms(params: dict) -> dict[str, float]:
         return p.full_tensor() if hasattr(p, "full_tensor") else p
 
     return {name: float(whole(p).float().norm()) for name, p in _tree.flatten_with_path(params)[0]}
-
-
-def _profiled(rep: dict, train_step, params, opt_state, batch):
-    """One train step under ``torch.profiler``: its wall and device ms, the
-    card's idle share and the device time of the costliest kernels, into
-    ``rep["profile"]``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = train_step(params, opt_state, batch)
-        float(out[2]["loss"])
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
-    rep["profile"] = {
-        "wall_ms": wall_ms, "device_ms": dev_ms, "idle_share": 1 - dev_ms / wall_ms,
-        "kernels": sum(e.count for e in ev),
-        "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
-    }
-    return out
 
 
 if __name__ == "__main__":

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import spans
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MASKED = -1e30  # the reference's mask value (not -inf)
@@ -467,35 +468,36 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
     or decode (kv_cache given, x is (B,1,D)).  In decode the new token's K/V
     are written into the cache tensors in place at ``cache_len - 1`` (the
     reference returns updated copies), and the cache must have room there."""
-    h, hd = cfg.n_heads, cfg.hd()
-    b = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if kv_cache is None:
-        am = _ambient_mesh()
-        t = q.shape[1]
-        if cfg.attn_seq_shard and am is not None and "model" in am.mesh_dim_names \
-                and t % sharding.mesh_sizes(am)["model"] == 0:
-            out = seq_sharded_attention(q, k, v, attn_chunk=cfg.attn_chunk)
+    with spans.span(spans.ATTENTION):
+        h, hd = cfg.n_heads, cfg.hd()
+        b = x.shape[0]
+        q, k, v = _qkv(p, x, cfg)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if kv_cache is None:
+            am = _ambient_mesh()
+            t = q.shape[1]
+            if cfg.attn_seq_shard and am is not None and "model" in am.mesh_dim_names \
+                    and t % sharding.mesh_sizes(am)["model"] == 0:
+                out = seq_sharded_attention(q, k, v, attn_chunk=cfg.attn_chunk)
+            else:
+                out = blocked_causal_attention(q, k, v, q_block=q_block,
+                                               attn_chunk=cfg.attn_chunk)
+            new_cache = (k, v)
         else:
-            out = blocked_causal_attention(q, k, v, q_block=q_block,
-                                           attn_chunk=cfg.attn_chunk)
-        new_cache = (k, v)
-    else:
-        kc, vc = kv_cache
-        idx = cache_len - 1
-        if not 0 <= idx < kc.shape[1]:
-            raise ValueError(f"KV cache of {kc.shape[1]} positions has no room at {idx}; "
-                             "grow it first (launch/serve.py grow_cache)")
-        kc[:, idx : idx + 1] = k
-        vc[:, idx : idx + 1] = v
-        out = decode_attention(q, kc, vc, cache_len, attn_chunk=cfg.attn_chunk)
-        new_cache = (kc, vc)
-    y = merge_heads(out) @ p["wo"]
-    if cfg.bf16_reduce:  # the reference's preferred_element_type=bf16
-        y = y.to(torch.bfloat16)
-    return y, new_cache
+            kc, vc = kv_cache
+            idx = cache_len - 1
+            if not 0 <= idx < kc.shape[1]:
+                raise ValueError(f"KV cache of {kc.shape[1]} positions has no room at {idx}; "
+                                 "grow it first (launch/serve.py grow_cache)")
+            kc[:, idx : idx + 1] = k
+            vc[:, idx : idx + 1] = v
+            out = decode_attention(q, kc, vc, cache_len, attn_chunk=cfg.attn_chunk)
+            new_cache = (kc, vc)
+        y = merge_heads(out) @ p["wo"]
+        if cfg.bf16_reduce:  # the reference's preferred_element_type=bf16
+            y = y.to(torch.bfloat16)
+        return y, new_cache
 
 
 # ------------------------------------------------------------------- MLP

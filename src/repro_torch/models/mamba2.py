@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, merge_heads, normal_init, rmsnorm, split_heads
+from repro_torch.obs import spans
 
 
 def init_mamba_block(generator: torch.Generator, cfg: ModelConfig, *,
@@ -217,47 +218,48 @@ def mamba_apply(p, x, cfg: ModelConfig, *, state=None):
     """Mamba-2 block.  Prefill: state=None.  Decode: state is
     (conv_state (B,W-1,C), ssd_state (B,H,N,P)) and x is (B,1,D).
     Returns (out, (conv_state, ssd_state))."""
-    b_sz, t, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
-    pdim = cfg.ssm_head_dim
-    z = x @ p["w_z"]
-    xs = x @ p["w_x"]
-    bb = x @ p["w_b"]
-    cc = x @ p["w_c"]
-    dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    with spans.span(spans.MAMBA):
+        b_sz, t, _ = x.shape
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+        pdim = cfg.ssm_head_dim
+        z = x @ p["w_z"]
+        xs = x @ p["w_x"]
+        bb = x @ p["w_b"]
+        cc = x @ p["w_c"]
+        dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])
+        a = -torch.exp(p["a_log"])
 
-    conv_in = torch.cat([xs, bb.to(xs.dtype), cc.to(xs.dtype)], -1)
-    if state is None:
-        conv_out = causal_conv(conv_in, p["conv_w"], p["conv_b"])
-    else:
-        conv_state, ssd_state = state
-        window = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
-        conv_out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
-        conv_out = (conv_out[:, None, :] + p["conv_b"].float()).to(conv_in.dtype)
-        new_conv_state = window[:, 1:, :]
-    conv_out = F.silu(conv_out)
-    xs2 = split_heads(conv_out[..., :di], h, pdim)  # a strided view
-    bb2 = conv_out[..., di : di + n]
-    cc2 = conv_out[..., di + n :]
+        conv_in = torch.cat([xs, bb.to(xs.dtype), cc.to(xs.dtype)], -1)
+        if state is None:
+            conv_out = causal_conv(conv_in, p["conv_w"], p["conv_b"])
+        else:
+            conv_state, ssd_state = state
+            window = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
+            conv_out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
+            conv_out = (conv_out[:, None, :] + p["conv_b"].float()).to(conv_in.dtype)
+            new_conv_state = window[:, 1:, :]
+        conv_out = F.silu(conv_out)
+        xs2 = split_heads(conv_out[..., :di], h, pdim)  # a strided view
+        bb2 = conv_out[..., di : di + n]
+        cc2 = conv_out[..., di + n :]
 
-    if state is None:
-        y, final_state = ssd_chunked(xs2, dt, a, bb2, cc2, chunk=cfg.ssm_chunk)
-    else:
-        decay = torch.exp(dt[:, 0, :] * a)  # (B,H)
-        upd = torch.einsum("bn,bh,bhv->bhnv", bb2[:, 0].float(), dt[:, 0, :],
-                           xs2[:, 0].float())
-        final_state = decay[:, :, None, None] * ssd_state + upd
-        y = torch.einsum("bn,bhnv->bhv", cc2[:, 0].float(), final_state)
-        y = y[:, None].to(x.dtype).reshape(b_sz, 1, h, pdim)
+        if state is None:
+            y, final_state = ssd_chunked(xs2, dt, a, bb2, cc2, chunk=cfg.ssm_chunk)
+        else:
+            decay = torch.exp(dt[:, 0, :] * a)  # (B,H)
+            upd = torch.einsum("bn,bh,bhv->bhnv", bb2[:, 0].float(), dt[:, 0, :],
+                               xs2[:, 0].float())
+            final_state = decay[:, :, None, None] * ssd_state + upd
+            y = torch.einsum("bn,bhnv->bhv", cc2[:, 0].float(), final_state)
+            y = y[:, None].to(x.dtype).reshape(b_sz, 1, h, pdim)
 
-    y = y + xs2 * p["d_skip"].to(y.dtype).reshape(1, 1, h, 1)
-    y = merge_heads(y)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"]
-    if state is None:
-        # prefill returns the final SSD state and the conv tail for decode
-        w1 = cfg.ssm_conv - 1
-        tail = conv_in[:, -w1:, :] if t >= w1 else F.pad(conv_in, (0, 0, w1 - t, 0))
-        return out, (tail, final_state)
-    return out, (new_conv_state, final_state)
+        y = y + xs2 * p["d_skip"].to(y.dtype).reshape(1, 1, h, 1)
+        y = merge_heads(y)
+        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        out = y @ p["w_out"]
+        if state is None:
+            # prefill returns the final SSD state and the conv tail for decode
+            w1 = cfg.ssm_conv - 1
+            tail = conv_in[:, -w1:, :] if t >= w1 else F.pad(conv_in, (0, 0, w1 - t, 0))
+            return out, (tail, final_state)
+        return out, (new_conv_state, final_state)

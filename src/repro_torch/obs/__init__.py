@@ -1,6 +1,6 @@
 """Observability for the timed ZapRAID stack (DESIGN.md §13).
 
-Three parts, all observe-only on the virtual clock:
+Four parts.  The first three are observe-only on the virtual clock:
 
 * :mod:`repro_torch.obs.trace` -- span tracing with a Chrome/Perfetto
   ``trace_event`` JSON exporter (request-scoped async spans + resource
@@ -11,6 +11,11 @@ Three parts, all observe-only on the virtual clock:
 * :mod:`repro_torch.obs.slo` -- the windowed-p99 :class:`SloMonitor` driving
   dynamic per-class admission through
   ``BlockDeviceService.class_caps``.
+
+The fourth, :mod:`repro_torch.obs.spans`, is on the host and device clock:
+named ``torch.profiler`` spans at the model path's layer boundaries (train
+step, Mamba-2 block, attention, serve loop), recorded only while a
+profiler records, which the benchmark's traced runs read.
 
 Every hook site in the stack guards on ``tracer is None`` /
 ``obs_event is None`` (the defaults), so with nothing attached the

@@ -35,6 +35,7 @@ import torch
 from repro_torch.checkpoint import _tree
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import tree_map
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,32 +71,33 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     """One AdamW step; returns (new_params, new_state, metrics) with
     metrics ``grad_norm`` and ``lr`` (0-d f32 tensors)."""
-    flat_p, tdef = _tree.flatten_with_path(params)
-    flat_g = [_placed_like(g, mw) for g, mw in zip(_tree.leaves(grads),
-                                                    _tree.leaves(state["master"]))]
-    gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in flat_g))
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    step = state["step"] + 1
-    lr = lr_at(cfg, state["step"])
-    stepf = step.to(torch.float32)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
+    with spans.span(spans.ADAMW):
+        flat_p, tdef = _tree.flatten_with_path(params)
+        flat_g = [_placed_like(g, mw) for g, mw in zip(_tree.leaves(grads),
+                                                        _tree.leaves(state["master"]))]
+        gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in flat_g))
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        step = state["step"] + 1
+        lr = lr_at(cfg, state["step"])
+        stepf = step.to(torch.float32)
+        b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
+        b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
 
-    def upd(p, g, mw, m, v):
-        g = g.to(torch.float32) * scale
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m2 / b1c
-        vhat = v2 / b2c
-        new_master = mw - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * mw)
-        return _placed_like(new_master.to(p.dtype), p), new_master, m2, v2
+        def upd(p, g, mw, m, v):
+            g = g.to(torch.float32) * scale
+            m2 = cfg.b1 * m + (1 - cfg.b1) * g
+            v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+            mhat = m2 / b1c
+            vhat = v2 / b2c
+            new_master = mw - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * mw)
+            return _placed_like(new_master.to(p.dtype), p), new_master, m2, v2
 
-    outs = [upd(p, *t) for (_, p), t in zip(
-        flat_p, zip(flat_g, *(_tree.leaves(state[k]) for k in ("master", "m", "v"))))]
-    new_params = _tree.unflatten(tdef, [o[0] for o in outs])
-    new_state = {"step": step, **{k: _tree.unflatten(tdef, [o[i] for o in outs])
-                                  for i, k in enumerate(("master", "m", "v"), 1)}}
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+        outs = [upd(p, *t) for (_, p), t in zip(
+            flat_p, zip(flat_g, *(_tree.leaves(state[k]) for k in ("master", "m", "v"))))]
+        new_params = _tree.unflatten(tdef, [o[0] for o in outs])
+        new_state = {"step": step, **{k: _tree.unflatten(tdef, [o[i] for o in outs])
+                                      for i, k in enumerate(("master", "m", "v"), 1)}}
+        return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def _placed_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

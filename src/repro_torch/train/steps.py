@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.distributed import compression as comp
 from repro_torch.models.model import build_model
+from repro_torch.obs import spans
 from repro_torch.optim import adamw
 
 
@@ -61,8 +62,10 @@ def value_and_grad(model, params: dict, batch: dict):
     tensor, the gradients a tree of ``params``' structure and dtypes."""
     named = {k: v.detach().requires_grad_() for k, v in _named(params).items()}
     with torch.enable_grad():
-        loss = torch.func.functional_call(model, named, ("loss", batch))
-        flat = torch.autograd.grad(loss, list(named.values()))
+        with spans.span(spans.FORWARD):
+            loss = torch.func.functional_call(model, named, ("loss", batch))
+        with spans.span(spans.BACKWARD):
+            flat = torch.autograd.grad(loss, list(named.values()))
     return loss.detach(), _nest(dict(zip(named, flat)))
 
 
