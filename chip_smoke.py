@@ -41,7 +41,13 @@ failing on the first error:
    unaligned view, and its C B^T kernel against its own; their SASS must
    hold tensor-core instructions; timed at both serving shapes beside
    their bounds (bytes over the memory rate, or FLOPs over the bf16
-   tensor-core rate);
+   tensor-core rate).  Prefill's causal attention kernel against
+   ``blocked_causal_attention`` in bf16 (``ATTN_CASES``, tolerance
+   ``ATTN_RTOL`` and ``ATTN_ATOL``): every head dim, GQA, a ragged T, an
+   offset, local chunks and rows with no key in their chunk; timed at
+   zamba2-2.7b's prefill (``ATTN_SHAPE``) beside its bound (FLOPs over the
+   bf16 tensor-core rate), the blocked path and, as the library's
+   yardstick only, ``scaled_dot_product_attention``;
 2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
    blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
    Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
@@ -72,7 +78,9 @@ failing on the first error:
    attention block applied 9 times) each run ``_setup``, ``_serve``
    (prefill and decode tokens/s, peak device memory, finite logits; 48 or
    54 launches of each SSD kernel per prefill call, none for the dense
-   model), ``_profile`` (device time by kernel and the card's idle share of
+   model; one launch of the attention kernel per attention application,
+   36 a prefill call for qwen2.5-3b, 9 for zamba2-2.7b, none for
+   mamba2-1.3b), ``_profile`` (device time by kernel and the card's idle share of
    one prefill call and one decode step) and ``_decode_check`` (in f32,
    ``prefill(t)`` plus k ``decode_step``s must give the last logits of
    ``prefill(t + i)`` at every step; t = 250 pads a ragged chunk, k = 3).
@@ -162,7 +170,8 @@ zeroed just before phase 2 and read just after phase 4 (``launches``), and
 zeroed again just before ``timed`` and read just after ``timed_degraded``
 (``timed_launches``); all of them are zeroed just before each serving run
 of phase 7 and read just after it (``launches`` of the SSD rows for
-mamba2-1.3b, ``hybrid_launches`` for zamba2-2.7b); the codec's are zeroed
+mamba2-1.3b and of the attention row for qwen2.5-3b, ``hybrid_launches``
+for zamba2-2.7b); the codec's are zeroed
 again just before phase 8 and read just after phase 10's runs
 (``ckpt_launches``), before its kernels are timed.  The run fails unless each of the four codec kernels
 launched there.  All of them are zeroed again just before ``mamba2_train``
@@ -253,6 +262,29 @@ TIMED_DEGRADED = dict(scan_iops=60_000, read_iops=30_000, ops=4_000,
 # paligemma-3b; the decode check's prompt t and steps k.
 SERVE = dict(requests=8, batch=4, prompt=1024, gen=32)
 DECODE_CHECK = dict(batch=2, t=250, k=3)
+# Prefill's causal attention kernel against the blocked function, bf16, as
+# (batch, t, heads, kv heads, head dim, s, q_offset, attn_chunk): zamba2's
+# layer at a reduced batch and length, every other head dim of the configs,
+# GQA, a ragged T, an offset into a longer cache, llama4-style chunks, and
+# rows whose chunk holds no key (the reference spreads them over all keys).
+ATTN_CASES = (
+    (2, 1024, 32, 32, 80, 1024, 0, 0),
+    (2, 512, 8, 8, 64, 512, 0, 0),
+    (2, 512, 16, 2, 128, 512, 0, 0),
+    (1, 384, 8, 1, 256, 384, 0, 0),
+    (2, 1000, 16, 4, 80, 1000, 0, 0),
+    (2, 512, 16, 4, 128, 768, 256, 0),
+    (2, 1024, 8, 2, 128, 1024, 0, 256),
+    (1, 64, 4, 4, 64, 64, 100, 128),
+)
+# The two outputs are bf16 roundings of f32 sums whose weights were rounded
+# to bf16 at two points (the kernel the unnormalised weights, the blocked
+# function the normalised ones): up to 2^-8 of sum_j w_j |v_j| <= max |v|
+# apart before the last rounding, which adds at most one ulp, 2^-7 of the
+# value.
+ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 2.0 ** -8
+# zamba2-2.7b's shared attention at its prefill cell (8 prompts of 4,096).
+ATTN_SHAPE = dict(batch=8, t=4096, heads=32, head_dim=80)
 # llama4-scout's full width (16 experts of 8,192, top-1, a shared expert;
 # 6.47 B parameters in two layers, 12.9 GB of bf16), its depth cut to
 # ``layers`` of 48 to fit one card: one batch served.  paligemma-3b: a
@@ -1195,6 +1227,64 @@ def ssd_checks() -> list[dict]:
     return [scan_row, gram_row]
 
 
+def attention_checks() -> dict:
+    """Hold the causal attention kernel against ``blocked_causal_attention``
+    on the card in bf16 (``ATTN_CASES``), then time it at zamba2-2.7b's
+    prefill (``ATTN_SHAPE``) beside its bound, the blocked path and
+    ``scaled_dot_product_attention`` (the library's yardstick, which the
+    port never calls).  Returns the kernel's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as attn
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    worst = 0.0
+    for b, t, h, kvh, hd, s, off, chunk in ATTN_CASES:
+        q, k, v = normal(b, t, h, hd), normal(b, s, kvh, hd), normal(b, s, kvh, hd)
+        got = attn.causal_attention(q, k, v, q_offset=off, attn_chunk=chunk).float()
+        want = L.blocked_causal_attention(q, k, v, q_block=512, q_offset=off,
+                                          attn_chunk=chunk).float()
+        err = (got - want).abs()
+        if not bool((err <= ATTN_RTOL * want.abs() + ATTN_ATOL * v.float().abs().max()).all()):
+            raise AssertionError(f"causal_attention {(b, t, h, kvh, hd, s, off, chunk)}: "
+                                 f"kernel differs from the blocked function by {err.max()}")
+        worst = max(worst, float(err.max()))
+
+    b, t, h, hd = (ATTN_SHAPE[key] for key in ("batch", "t", "heads", "head_dim"))
+    q, k, v = normal(b, t, h, hd), normal(b, t, h, hd), normal(b, t, h, hd)
+    want = L.blocked_causal_attention(q, k, v, q_block=512).float()
+    diff = (attn.causal_attention(q, k, v).float() - want).abs()
+    if not bool((diff <= ATTN_RTOL * want.abs() + ATTN_ATOL * v.float().abs().max()).all()):
+        raise AssertionError(f"causal_attention at {ATTN_SHAPE}: kernel differs from the "
+                             f"blocked function by {diff.max()}")
+    err = float(diff.max())
+    del want, diff
+    args = [(q, k, v)]  # 168 MB each: every call reads them from device memory
+    ms, call_ms = _time_ms(attn.causal_attention, args, 20)
+    plain_ms, plain_call_ms = _time_ms(
+        lambda q_, k_, v_: L.blocked_causal_attention(q_, k_, v_, q_block=512), args, 2)
+    lib_ms, _ = _time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), is_causal=True), args, 20)
+    flops = attn.attention_flops(b, t, h, hd)
+    nbytes = 4 * q.numel() * q.element_size()
+    op_ms, byte_ms = 1e3 * flops / BF16_TENSOR_FLOP_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    return {
+        "name": "causal_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": "none (counterpart of src/repro/models/layers.py blocked_causal_attention)",
+        "launches": 0, "max_abs_err": max(worst, err), "cases": len(ATTN_CASES) + 1,
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+        "bound_ms": max(op_ms, byte_ms), "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": lib_ms, "shape": [list(q.shape)] * 3, "flops": flops, "bytes": nbytes,
+        "ops_us": 1e3 * op_ms, "bytes_us": 1e3 * byte_ms, "bound_share": max(op_ms, byte_ms) / ms,
+    }
+
+
 def bwd_tensor_core_instructions(library: Path) -> dict[str, int]:
     """HMMA/HGMMA instructions in the SASS of each instance of the
     backward's three product kernels (the state pass, the per-chunk
@@ -2002,12 +2092,16 @@ def serving_path(tag: str, arch: str, seed: int) -> dict:
     with Phase(f"{tag}_serve") as ph:
         st = serve_phase(model, seed, ph)
     counts = launch_counts()  # read just after it
-    ssm = model.cfg.family in ("ssm", "hybrid")
-    want = model.cfg.n_layers * st.prefill_calls if ssm else 0
+    cfg = model.cfg
+    ssm = cfg.family in ("ssm", "hybrid")
+    want = {name: cfg.n_layers * st.prefill_calls if ssm else 0 for name in SSD_KERNELS}
+    # one attention kernel per attention application of a prefill call
+    apps = model.n_apps if ssm else cfg.n_layers
+    want["causal_attention"] = apps * st.prefill_calls
     for name, n in counts.items():
-        if n != (want if name in SSD_KERNELS else 0) or (ssm and want == 0):
+        if n != want.get(name, 0) or st.prefill_calls == 0:
             raise AssertionError(f"{arch}: {name} launched {n} times while serving, want "
-                                 f"{want if name in SSD_KERNELS else 0}: {counts}")
+                                 f"{want.get(name, 0)}: {counts}")
     with Phase(f"{tag}_profile") as ph:
         serve_profile(model, seed, ph)
     del model
@@ -3076,13 +3170,14 @@ def main() -> int:
         rows = [batch_rows[0], stripe_rows[0], batch_rows[1], stripe_rows[1]]
         trips = codec_round_trips()
         ssd_rows = ssd_checks()
+        attn_row = attention_checks()
         ph.info.update(gpu=gpu, link=rates, launch_floor=floor, round_trips=trips)
         ph.info["kernels"] = [
             {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
                                "plain_call_ms", "bytes_us", "ops_us", "bound_by",
                                "cases", "form", "device_operands") if k in r}
             for r in rows]
-        for r in ssd_rows:
+        for r in ssd_rows + [attn_row]:
             ph.info[r["name"]] = {k: v for k, v in r.items()
                                   if k not in ("route", "source", "replaces", "launches")}
 
@@ -3221,7 +3316,8 @@ def main() -> int:
     for r in ssd_rows:
         r["launches"] = serving["mamba2"][r["name"]]
     grad_row["launches"] = train_path["ssd_scan_bwd"]
-    rows += ssd_rows + [grad_row]
+    attn_row["launches"] = serving["dense"]["causal_attention"]
+    rows += ssd_rows + [grad_row, attn_row]
     for r in rows:
         r["timed_launches"] = timed_path[r["name"]]
         r["ckpt_launches"] = ckpt_path[r["name"]]

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source to an object, all of them at once, and links
 the objects into one shared library with a plain C interface, for ``sm_90a``
-(Hopper), at first use (the SSD sources share ``csrc/ssd_common.cuh``).
+(Hopper), at first use (the SSD and attention sources share
+``csrc/ssd_common.cuh``).
 The library lands in ``build/repro_torch/`` at the root of the checkout,
 named by a hash of the sources, the header and the flags, so an edit
 rebuilds and an unchanged tree reuses it.  It is loaded with ``ctypes``:
@@ -27,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu", CSRC / "ssd_scan_bwd.cu")
+SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu", CSRC / "ssd_scan_bwd.cu",
+           CSRC / "attention.cu")
 HEADERS = (CSRC / "ssd_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -128,6 +130,8 @@ def load() -> ctypes.CDLL:
             lib.ssd_scan.restype = i
             lib.ssd_scan_bwd.argtypes = [i, *[vp] * 21, *[i] * 10, vp, vp]
             lib.ssd_scan_bwd.restype = i
+            lib.causal_attention.argtypes = [vp, vp, vp, vp, *[i] * 8, ctypes.c_float, vp, vp]
+            lib.causal_attention.restype = i
             _lib = lib
         return _lib
 

@@ -15,7 +15,10 @@ The counterparts of the serving functions of the JAX package's
 * attention over long sequences is *blocked* over query chunks (exact), so
   the T x T score matrix never materialises whole.  It is plain torch
   written as the reference writes it (f32 scores, masks of ``-1e30``, the
-  blocked causal softmax), not ``scaled_dot_product_attention``;
+  blocked causal softmax), not ``scaled_dot_product_attention``.  A
+  prefill on bf16 CUDA tensors that autograd does not record runs the same
+  function as one launch of the port's own kernel instead
+  (``kernels/attention.py``; :func:`prefill_attention`);
 * the MoE dispatch sorts tokens by expert within each batch row (stably, as
   ``jnp.argsort``), scattering into an (E, C, D) capacity buffer.
 
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
+from repro_torch.kernels import attention as attention_kernel
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import spans
 
@@ -380,6 +384,25 @@ def blocked_causal_attention(q, k, v, *, q_block: int, q_offset: int = 0,
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
+def prefill_attention(q, k, v, *, q_block: int, q_offset: int = 0, attn_chunk: int = 0):
+    """Causal GQA attention of a prefill: what :func:`blocked_causal_attention`
+    computes, as one launch of the CUDA kernel (``kernels/attention.py``)
+    where the operands show it can: bf16 tensors on the card that autograd
+    does not record (the kernel has no backward).  Everything else -- CPU
+    tensors, float32 models, a training step -- takes the blocked function.
+    A head dim the kernel has no instance for raises.  On DTensors it runs
+    on each rank's batch rows and heads (:func:`per_head_shard`)."""
+    if is_dtensor(q):
+        return per_head_shard(prefill_attention, q, k, v, q_block=q_block, q_offset=q_offset,
+                              attn_chunk=attn_chunk)
+    recorded = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if q.is_cuda and q.dtype == torch.bfloat16 and not recorded:
+        return attention_kernel.causal_attention(q, k, v, q_offset=q_offset,
+                                                 attn_chunk=attn_chunk)
+    return blocked_causal_attention(q, k, v, q_block=q_block, q_offset=q_offset,
+                                    attn_chunk=attn_chunk)
+
+
 def seq_sharded_attention(q, k, v, *, q_offset: int = 0, attn_chunk: int = 0):
     """Exact causal GQA attention with the query *time* axis sharded over the
     ambient mesh's model axis (context parallelism).
@@ -481,8 +504,7 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
                     and t % sharding.mesh_sizes(am)["model"] == 0:
                 out = seq_sharded_attention(q, k, v, attn_chunk=cfg.attn_chunk)
             else:
-                out = blocked_causal_attention(q, k, v, q_block=q_block,
-                                               attn_chunk=cfg.attn_chunk)
+                out = prefill_attention(q, k, v, q_block=q_block, attn_chunk=cfg.attn_chunk)
             new_cache = (k, v)
         else:
             kc, vc = kv_cache
