@@ -14,6 +14,7 @@ ARCHS = [
     "llama4-scout-17b-a16e",
     "paligemma-3b",
     "zamba2-2.7b",
+    "granite-4.0-h-small",
 ]
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}

@@ -3,8 +3,9 @@
 One launch computes what ``models/layers.py blocked_causal_attention``
 computes, at its precision: f32 scores of bf16 operands on the tensor cores,
 a mask of -1e30 (causal, and with ``attn_chunk`` > 0 llama4's local chunks),
-the softmax in f32, the weights rounded to bf16 before P V, P V summed in
-f32 and the output rounded once to bf16.  The kernel's design, and why it
+the softmax in f32 of the scores times ``scale`` (head_dim ** -0.5 unless
+given), the weights rounded to bf16 before P V, P V summed in f32 and the
+output rounded once to bf16.  The kernel's design, and why it
 rounds the unnormalised weights (one pass), are in its source.
 
 It replaces no Pallas kernel: the JAX package's attention is ``jnp`` code,
@@ -66,13 +67,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     q_offset: int = 0, attn_chunk: int = 0) -> torch.Tensor:
+                     q_offset: int = 0, attn_chunk: int = 0,
+                     scale: float | None = None) -> torch.Tensor:
     """Exact causal GQA attention on the card: q (B,T,H,hd), k, v
     (B,S,KV,hd) bf16 -> (B,T,H,hd) bf16, in one launch on the current
     stream.  Query row i sees keys j <= i + q_offset (and, with
-    ``attn_chunk`` > 0, only keys of its own chunk)."""
+    ``attn_chunk`` > 0, only keys of its own chunk); the scores are scaled
+    by ``scale``, head_dim ** -0.5 by default."""
     _check(q, k, v, q_offset, attn_chunk)
-    return causal_attention_op(q, k, v, q_offset, attn_chunk)
+    return causal_attention_op(q, k, v, q_offset, attn_chunk,
+                               q.shape[3] ** -0.5 if scale is None else scale)
 
 
 # The launch as an operator of its own (``repro_torch::causal_attention``),
@@ -83,7 +87,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @torch.library.custom_op("repro_torch::causal_attention", mutates_args=())
 def causal_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-                        attn_chunk: int) -> torch.Tensor:
+                        attn_chunk: int, scale: float) -> torch.Tensor:
     """:func:`causal_attention` on checked operands."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(x.stride(d) % 8 for d in range(3)) or x.data_ptr() % 16:
@@ -99,11 +103,11 @@ def causal_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_off
                                        *out.stride()[:3])
     _build.launch("causal_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), b, t, s, h, kvh, hd, q_offset, attn_chunk,
-                  ctypes.c_float(hd ** -0.5), strides)
+                  ctypes.c_float(scale), strides)
     LAUNCHES["causal_attention"] += 1
     return out
 
 
 @causal_attention_op.register_fake
-def _(q, k, v, q_offset, attn_chunk):
+def _(q, k, v, q_offset, attn_chunk, scale):
     return q.new_empty(q.shape)

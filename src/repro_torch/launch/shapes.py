@@ -42,6 +42,11 @@ def cell_supported(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
             "spec-directed skip: long_500k needs sub-quadratic attention; "
             f"{cfg.name} is a full-attention family ({cfg.family})"
         )
+    if cfg.moe_dropless:
+        return False, (
+            f"{cfg.name}: the dropless MoE runs on one device; its expert segments are not "
+            "split over the dry run's meshes"
+        )
     return True, ""
 
 

@@ -20,7 +20,9 @@ The counterparts of the serving functions of the JAX package's
   function as one launch of the port's own kernel instead
   (``kernels/attention.py``; :func:`prefill_attention`);
 * the MoE dispatch sorts tokens by expert within each batch row (stably, as
-  ``jnp.argsort``), scattering into an (E, C, D) capacity buffer.
+  ``jnp.argsort``), scattering into an (E, C, D) capacity buffer; with
+  ``cfg.moe_dropless`` every routed slot is computed instead, the experts'
+  products grouped over contiguous segments of the sorted slots.
 
 The sharding helpers (``_wsc``, ``gather_fsdp_weights``,
 ``pin_activation_batch``) and ``seq_sharded_attention`` act on DTensors
@@ -350,23 +352,24 @@ def per_head_shard(fn, q, k, v, **kw):
 
 
 def blocked_causal_attention(q, k, v, *, q_block: int, q_offset: int = 0,
-                             attn_chunk: int = 0):
+                             attn_chunk: int = 0, scale: float | None = None):
     """Exact causal GQA attention, blocked over query chunks.
 
     q: (B,T,H,hd); k,v: (B,S,KV,hd).  Query position i attends to key
     positions <= i + q_offset (and, with attn_chunk>0, only keys in the same
-    local chunk -- llama4-style chunked attention).  The query blocks are
-    of the largest size <= ``q_block`` that divides T.  Returns (B,T,H,hd).
+    local chunk -- llama4-style chunked attention).  The scores are scaled
+    by ``scale`` (hd ** -0.5 by default).  The query blocks are of the
+    largest size <= ``q_block`` that divides T.  Returns (B,T,H,hd).
     On DTensors it runs on each rank's batch rows and heads
     (:func:`per_head_shard`).
     """
     if is_dtensor(q):
         return per_head_shard(blocked_causal_attention, q, k, v, q_block=q_block,
-                              q_offset=q_offset, attn_chunk=attn_chunk)
+                              q_offset=q_offset, attn_chunk=attn_chunk, scale=scale)
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qb = min(q_block, t)
     while t % qb:  # largest block <= q_block that divides t (ragged prefixes)
         qb -= 1
@@ -384,7 +387,8 @@ def blocked_causal_attention(q, k, v, *, q_block: int, q_offset: int = 0,
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
-def prefill_attention(q, k, v, *, q_block: int, q_offset: int = 0, attn_chunk: int = 0):
+def prefill_attention(q, k, v, *, q_block: int, q_offset: int = 0, attn_chunk: int = 0,
+                      scale: float | None = None):
     """Causal GQA attention of a prefill: what :func:`blocked_causal_attention`
     computes, as one launch of the CUDA kernel (``kernels/attention.py``)
     where the operands show it can: bf16 tensors on the card that autograd
@@ -394,16 +398,17 @@ def prefill_attention(q, k, v, *, q_block: int, q_offset: int = 0, attn_chunk: i
     on each rank's batch rows and heads (:func:`per_head_shard`)."""
     if is_dtensor(q):
         return per_head_shard(prefill_attention, q, k, v, q_block=q_block, q_offset=q_offset,
-                              attn_chunk=attn_chunk)
+                              attn_chunk=attn_chunk, scale=scale)
     recorded = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if q.is_cuda and q.dtype == torch.bfloat16 and not recorded:
         return attention_kernel.causal_attention(q, k, v, q_offset=q_offset,
-                                                 attn_chunk=attn_chunk)
+                                                 attn_chunk=attn_chunk, scale=scale)
     return blocked_causal_attention(q, k, v, q_block=q_block, q_offset=q_offset,
-                                    attn_chunk=attn_chunk)
+                                    attn_chunk=attn_chunk, scale=scale)
 
 
-def seq_sharded_attention(q, k, v, *, q_offset: int = 0, attn_chunk: int = 0):
+def seq_sharded_attention(q, k, v, *, q_offset: int = 0, attn_chunk: int = 0,
+                          scale: float | None = None):
     """Exact causal GQA attention with the query *time* axis sharded over the
     ambient mesh's model axis (context parallelism).
 
@@ -426,12 +431,13 @@ def seq_sharded_attention(q, k, v, *, q_offset: int = 0, attn_chunk: int = 0):
     dp = _data_axes(am)
     batch_split = bool(dp) and b % math.prod(sizes[a] for a in dp) == 0
     qr = q.reshape(b, msz, tq, kvh, g, hd)
+    scale = hd ** -0.5 if scale is None else scale
 
     def local(qr, k, v):
         m_local = qr.shape[1]
         m0 = am.get_local_rank("model") * m_local if m_local < msz else 0
         s_len = k.shape[1]
-        scores = torch.einsum("bmtkgh,bskh->bmkgts", qr.float(), k.float()) * hd ** -0.5
+        scores = torch.einsum("bmtkgh,bskh->bmkgts", qr.float(), k.float()) * scale
         kpos = torch.arange(s_len, device=qr.device)
         qpos = (q_offset + (m0 + torch.arange(m_local, device=qr.device))[:, None] * tq
                 + torch.arange(tq, device=qr.device)[None, :])  # (m, tq)
@@ -462,21 +468,23 @@ def seq_sharded_attention(q, k, v, *, q_offset: int = 0, attn_chunk: int = 0):
     return out.reshape(b, t, h, hd).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, attn_chunk: int = 0):
+def decode_attention(q, k_cache, v_cache, cache_len: int, *, attn_chunk: int = 0,
+                     scale: float | None = None):
     """Single-token attention over a KV cache.
 
     q: (B,1,H,hd); caches: (B,S,KV,hd); cache_len: count of valid entries
-    (the new token's K/V must already be written at cache_len-1).  On
-    DTensors it runs on each rank's batch rows and heads
-    (:func:`per_head_shard`).
+    (the new token's K/V must already be written at cache_len-1); scores
+    scaled by ``scale`` (hd ** -0.5 by default).  On DTensors it runs on
+    each rank's batch rows and heads (:func:`per_head_shard`).
     """
     if is_dtensor(q):
         return per_head_shard(decode_attention, q, k_cache, v_cache, cache_len=cache_len,
-                              attn_chunk=attn_chunk)
+                              attn_chunk=attn_chunk, scale=scale)
     b, _, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     qr = group_heads(q, kvh)
-    scores = _gqa_scores_block(qr, k_cache, hd ** -0.5)  # (B,KV,G,1,S)
+    scale = hd ** -0.5 if scale is None else scale
+    scores = _gqa_scores_block(qr, k_cache, scale)  # (B,KV,G,1,S)
     kpos = torch.arange(s, device=q.device)
     mask = kpos < cache_len
     if attn_chunk:
@@ -490,21 +498,26 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
     """Unified attention: prefill (kv_cache=None -> returns the fresh (k, v))
     or decode (kv_cache given, x is (B,1,D)).  In decode the new token's K/V
     are written into the cache tensors in place at ``cache_len - 1`` (the
-    reference returns updated copies), and the cache must have room there."""
+    reference returns updated copies), and the cache must have room there.
+    Without ``cfg.use_rope`` (NoPE) q and k carry no positions; the scores
+    are scaled by ``cfg.attn_scale`` where the config sets it."""
     with spans.span(spans.ATTENTION):
         h, hd = cfg.n_heads, cfg.hd()
         b = x.shape[0]
         q, k, v = _qkv(p, x, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        scale = cfg.attn_scale
         if kv_cache is None:
             am = _ambient_mesh()
             t = q.shape[1]
             if cfg.attn_seq_shard and am is not None and "model" in am.mesh_dim_names \
                     and t % sharding.mesh_sizes(am)["model"] == 0:
-                out = seq_sharded_attention(q, k, v, attn_chunk=cfg.attn_chunk)
+                out = seq_sharded_attention(q, k, v, attn_chunk=cfg.attn_chunk, scale=scale)
             else:
-                out = prefill_attention(q, k, v, q_block=q_block, attn_chunk=cfg.attn_chunk)
+                out = prefill_attention(q, k, v, q_block=q_block, attn_chunk=cfg.attn_chunk,
+                                        scale=scale)
             new_cache = (k, v)
         else:
             kc, vc = kv_cache
@@ -514,7 +527,7 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
                                  "grow it first (launch/serve.py grow_cache)")
             kc[:, idx : idx + 1] = k
             vc[:, idx : idx + 1] = v
-            out = decode_attention(q, kc, vc, cache_len, attn_chunk=cfg.attn_chunk)
+            out = decode_attention(q, kc, vc, cache_len, attn_chunk=cfg.attn_chunk, scale=scale)
             new_cache = (kc, vc)
         y = merge_heads(out) @ p["wo"]
         if cfg.bf16_reduce:  # the reference's preferred_element_type=bf16
@@ -597,6 +610,17 @@ def moe_axes(cfg: ModelConfig) -> dict:
     return a
 
 
+def moe_route(router: torch.Tensor, rows: torch.Tensor, top_k: int):
+    """(experts (..., k), renormalised probabilities (..., k) f32) of rows
+    (..., D): the f32 router softmax, its top k, renormalised (the same
+    numbers as a softmax over the top k logits)."""
+    probs = torch.softmax(rows.float() @ router, dim=-1)
+    # jax.lax.top_k breaks ties toward the lower index; torch.topk does not
+    # promise an order among equal values (ties need exactly equal f32 probs)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)
+    return top_e, top_p / top_p.sum(dim=-1, keepdim=True)
+
+
 @dataclasses.dataclass
 class Dispatch:
     """Where each of a batch row's t*k routed slots goes, in sorted order."""
@@ -614,11 +638,7 @@ def moe_dispatch(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Dis
     b, t, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(math.ceil(t * k / e * cfg.capacity_factor)))
-    probs = torch.softmax(x.float() @ router, dim=-1)
-    # jax.lax.top_k breaks ties toward the lower index; torch.topk does not
-    # promise an order among equal values (ties need exactly equal f32 probs)
-    top_p, top_e = torch.topk(probs, k, dim=-1)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    top_e, top_p = moe_route(router, x, k)
     flat_e, flat_p = top_e.reshape(b, t * k), top_p.reshape(b, t * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, 1, order)
@@ -684,26 +704,67 @@ def _per_batch_shard(fn, like, n_in: int, n_out: int, replicated_in: tuple = ())
                      redistribute_inputs=True)
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """Capacity-based top-k MoE with sorted dispatch: scatter-add into an
-    (E*C + 1, D) buffer per batch row (the last row the sentinel of dropped
-    slots), the expert FFNs as batched products, then gather back with an
-    appended zero row, weighted by the kept slots' probabilities.
+def _moe_dropless(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Every routed slot of every token computed, none dropped: the b*t*k
+    slots stably sorted by expert and their rows gathered, each expert's
+    SwiGLU run on its contiguous segment by grouped products (one launch a
+    projection; the segments' ends stay on the device, so nothing is read
+    back), the outputs put back in (token, slot) order and each token's k
+    outputs summed with its probabilities (rounded to ``x.dtype``, as the
+    capacity path weights them) in one batched product that accumulates in
+    f32.  Returns the routed part (b, t, d) in f32."""
+    b, t, d = x.shape
+    k = cfg.top_k
+    rows = x.reshape(b * t, d)
+    top_e, top_p = moe_route(p["router"], rows, k)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    experts = torch.arange(cfg.n_experts, device=x.device)
+    ends = torch.searchsorted(flat_e[order], experts, right=True, out_int32=True)
+    src = rows[order // k]  # (b*t*k, d), grouped by expert
+    with spans.span(spans.MOE_EXPERTS):
+        act = _swiglu(torch._grouped_mm(src, p["w_gate"], offs=ends),
+                      torch._grouped_mm(src, p["w_in"], offs=ends))
+        out = torch._grouped_mm(act, p["w_out"], offs=ends)
+    slots = torch.empty_like(out).index_copy(0, order, out).view(b * t, k, d)
+    y = torch.bmm(top_p.to(out.dtype).view(b * t, 1, k), slots)
+    return y.view(b, t, d).float()
 
-    On DTensors the routing, the scatter and the gather run on each rank's
-    batch rows (``local_map``: the sort is along the unsharded T axis, as
-    in the reference), and the expert products between them on the mesh, the
-    expert weights sharded over experts or their ffn dim."""
-    t = x.shape[1]
-    scatter = _per_batch_shard(lambda r, x: _moe_scatter(r, x, cfg), x, 2, 4, (0,))
-    buf, token_of, slot, weight = scatter(p["router"], x)
-    b, e, cap, d = buf.shape
-    # the expert products as batched matmuls over e: (e, b*cap, d) x (e, d, ff)
-    rows = buf.permute(1, 0, 2, 3).reshape(e, b * cap, d)
-    act = _swiglu(torch.bmm(rows, p["w_gate"]), torch.bmm(rows, p["w_in"]))
-    out = torch.bmm(act, p["w_out"]).reshape(e, b, cap, d).permute(1, 0, 2, 3)
-    gather = _per_batch_shard(lambda o, i, s, w: _moe_gather(o, i, s, w, t), x, 4, 1)
-    y = gather(out, token_of, slot, weight)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], x)
-    return y.to(x.dtype)
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Top-k MoE.  With ``cfg.moe_dropless``, every routed slot is computed
+    (:func:`_moe_dropless`) and the shared expert is added in f32 before the
+    one rounding to ``x.dtype``.  Otherwise capacity-based with sorted
+    dispatch: scatter-add into an (E*C + 1, D) buffer per batch row (the last
+    row the sentinel of dropped slots), the expert FFNs as batched products,
+    then gather back with an appended zero row, weighted by the kept slots'
+    probabilities.
+
+    On DTensors the capacity path's routing, scatter and gather run on each
+    rank's batch rows (``local_map``: the sort is along the unsharded T
+    axis, as in the reference), and the expert products between them on
+    the mesh, the expert weights sharded over experts or their ffn dim; the
+    dropless path takes no DTensors."""
+    with spans.span(spans.MOE):
+        if cfg.moe_dropless:
+            if is_dtensor(x):
+                raise NotImplementedError(f"{cfg.name}: the dropless MoE runs on one device; "
+                                          "its expert segments are not split over a mesh")
+            y = _moe_dropless(p, x, cfg)
+            if "shared" in p:
+                y = y + mlp_apply(p["shared"], x)
+            return y.to(x.dtype)
+        t = x.shape[1]
+        scatter = _per_batch_shard(lambda r, x: _moe_scatter(r, x, cfg), x, 2, 4, (0,))
+        buf, token_of, slot, weight = scatter(p["router"], x)
+        b, e, cap, d = buf.shape
+        # the expert products as batched matmuls over e: (e, b*cap, d) x (e, d, ff)
+        with spans.span(spans.MOE_EXPERTS):
+            rows = buf.permute(1, 0, 2, 3).reshape(e, b * cap, d)
+            act = _swiglu(torch.bmm(rows, p["w_gate"]), torch.bmm(rows, p["w_in"]))
+            out = torch.bmm(act, p["w_out"]).reshape(e, b, cap, d).permute(1, 0, 2, 3)
+        gather = _per_batch_shard(lambda o, i, s, w: _moe_gather(o, i, s, w, t), x, 4, 1)
+        y = gather(out, token_of, slot, weight)
+        if "shared" in p:
+            y = y + mlp_apply(p["shared"], x)
+        return y.to(x.dtype)

@@ -8,6 +8,9 @@ The counterparts of the JAX package's ``models/model.py`` serving paths:
   ssm               -> ``MambaLM``: Mamba-2 stack (attention-free)
   hybrid            -> ``MambaLM`` + one shared attention block applied after
                        every ``shared_attn_every``-th layer (zamba2-style)
+  hybrid_moe        -> ``HybridMoELM``: a per-layer pattern of Mamba-2 and
+                       attention mixers, each layer followed by a MoE with a
+                       shared expert (granite-4.0-h-style)
   encdec            -> ``EncDecLM``: whisper backbone, a bidirectional encoder
                        over stub frame embeddings + a causal decoder with
                        cross-attention
@@ -36,8 +39,9 @@ and, under ``torch.no_grad``:
   init_cache(batch, max_len) -> a zeroed cache of the reference's shapes
 The caches are the reference's: ``k``/``v`` (L,B,S,KV,HD), ``conv``/``ssd``
 for Mamba-2 layers, ``ak``/``av`` (apps,B,S,KV,HD) for the hybrid's shared
-block, ``ck``/``cv`` (L,B,enc_len,KV,HD) for cross-attention, and ``len``
-(an int, the valid positions, a vision prefix included).  ``decode_step``
+block or a layer pattern's attention layers, ``ck``/``cv`` (L,B,enc_len,KV,HD)
+for cross-attention, and ``len`` (an int, the valid positions, a vision
+prefix included).  ``decode_step``
 writes into the cache's tensors in place (the reference returns new
 arrays), so a KV cache must already have room for the new position:
 ``launch/serve.py`` grows it after prefill, as the reference's loop does.
@@ -618,8 +622,141 @@ class EncDecLM(_LM):
         return self._logits(x), cache
 
 
+# =====================================================================
+# granite-4.0-h-style hybrid: a layer pattern of mixers, a MoE in every layer
+# =====================================================================
+
+class HybridMoELM(_LM):
+    """Mamba-2 and attention mixers in the order of ``cfg.layer_types``, each
+    layer followed by a MoE (``cfg.top_k`` of ``cfg.n_experts`` with a shared
+    expert), as GraniteMoeHybrid computes:
+
+      h = embed_scale * embed[tokens]
+      per layer l:  h = h + residual_scale * Mixer_l(rmsnorm(h, ln1_l))
+                    h = h + residual_scale * MoE_l(rmsnorm(h, ln2_l))
+      logits = logits_scale * rmsnorm(h, final_norm) @ embed^T   (tied)
+
+    The Mamba-2 blocks are stacked over the Mamba layers (``mamba``), the
+    attention projections over the attention layers (``attn``), the norms
+    and MoEs over every layer (``layers``).  The cache holds both kinds of
+    state side by side: ``conv``/``ssd`` per Mamba layer and ``ak``/``av``
+    per attention layer."""
+
+    def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        dev, g = _setup(type(self), cfg, ("hybrid_moe",), device, generator)
+        d, n, dt = cfg.d_model, cfg.n_layers, L.dtype_of(cfg)
+        tree = {
+            "layers": {"ln1": _ones(cfg, (n, d), dev), "ln2": _ones(cfg, (n, d), dev),
+                       "moe": L.init_moe(g, cfg, device=dev, lead=(n,))},
+            "mamba": M.init_mamba_block(g, cfg, device=dev, lead=(cfg.layers_of("mamba"),)),
+            "attn": L.init_attention(g, cfg, device=dev, lead=(cfg.layers_of("attention"),)),
+            "embed": L.normal_init(g, (cfg.vocab, d), 1.0, dt, dev),
+            "final_norm": _ones(cfg, (d,), dev),
+        }
+        if not cfg.tie_embeddings:
+            tree["lm_head"] = L.normal_init(g, (d, cfg.vocab), d ** -0.5, dt, dev)
+        super().__init__(cfg, tree)
+        self.n_apps = cfg.layers_of("attention")
+
+    def _stacks(self):
+        """Per-layer views: [(kind, index within its kind, mixer leaves,
+        layer leaves)] in layer order."""
+        cfg = self.cfg
+        mixers = {"mamba": per_layer(self.mamba.tree(), cfg.layers_of("mamba")),
+                  "attention": per_layer(self.attn.tree(), self.n_apps)}
+        seen = {"mamba": 0, "attention": 0}
+        out = []
+        for kind, p in zip(cfg.layer_types, per_layer(self.layers.tree(), cfg.n_layers)):
+            out.append((kind, seen[kind], mixers[kind][seen[kind]], p))
+            seen[kind] += 1
+        return out
+
+    def _layer(self, kind, mp, p, x, positions, state=None, cache_len=None):
+        """One layer: (x, the mixer's new state: (conv, ssd) or (k, v))."""
+        cfg = self.cfg
+        u = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if kind == "mamba":
+            out, new = M.mamba_apply(mp, u, cfg, state=state)
+        else:
+            out, new = L.attention_apply(mp, u, cfg, positions=positions, kv_cache=state,
+                                         cache_len=cache_len)
+        x = x + cfg.residual_scale * out
+        moe = L.moe_apply(p["moe"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+        return x + cfg.residual_scale * moe, new
+
+    def _embed(self, tokens):
+        return L.embed(self.embed, tokens) * self.cfg.embed_scale
+
+    def _logits(self, x):
+        x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return (x @ w) * self.cfg.logits_scale
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        x = self._embed(batch["tokens"].long())
+        positions = _positions(*x.shape[:2], x.device)
+        for kind, _, mp, p in self._stacks():
+            x = self._remat(lambda mp, p, h, kind=kind: self._layer(kind, mp, p, h,
+                                                                   positions)[0], mp, p, x)
+        return _ce_loss(self._logits(x), batch["labels"])
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """tokens (B,T) -> (logits of the last position (B,1,V), cache).
+        Each layer's state is copied into the cache as the layer ends: a
+        Mamba-2 block's conv tail is a view of its whole conv input, which
+        would otherwise stay alive until the last layer."""
+        x = self._embed(tokens)
+        b, t = tokens.shape
+        positions = _positions(b, t, x.device)
+        cache = self.init_cache(b, t)
+        for kind, i, mp, p in self._stacks():
+            x, new = self._layer(kind, mp, p, x, positions)
+            for key, val in zip(("conv", "ssd") if kind == "mamba" else ("ak", "av"), new):
+                cache[key][i].copy_(val)
+        cache["len"] = t
+        return self._logits(x[:, -1:]), cache
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        cfg = self.cfg
+        dt = L.dtype_of(cfg)
+        nm = cfg.layers_of("mamba")
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        kv = (self.n_apps, batch_size, max_len, cfg.n_kv_heads, cfg.hd())
+        return {
+            "conv": torch.zeros((nm, batch_size, cfg.ssm_conv - 1, ch), dtype=dt,
+                                device=self.device),
+            "ssd": torch.zeros((nm, batch_size, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim),
+                               dtype=torch.float32, device=self.device),
+            "ak": torch.zeros(kv, dtype=dt, device=self.device),
+            "av": torch.zeros(kv, dtype=dt, device=self.device),
+            "len": 0,
+        }
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """tokens (B,1) -> (logits (B,1,V), cache with the Mamba states
+        advanced and the new K/V written in place, ``len`` one longer)."""
+        if self.n_apps:
+            self._grow_check(cache, "ak")
+        new_len = cache["len"] + 1
+        x = self._embed(tokens)
+        positions = torch.full(tokens.shape, new_len - 1, device=x.device)
+        for kind, i, mp, p in self._stacks():
+            if kind == "mamba":
+                conv, ssd = cache["conv"], cache["ssd"]
+                x, (conv[i], ssd[i]) = self._layer(kind, mp, p, x, positions,
+                                                   state=(conv[i], ssd[i]))
+            else:
+                x, _ = self._layer(kind, mp, p, x, positions,
+                                   state=(cache["ak"][i], cache["av"][i]), cache_len=new_len)
+        cache["len"] = new_len
+        return self._logits(x), cache
+
+
 _MODELS = {"dense": TransformerLM, "moe": TransformerLM, "vlm": TransformerLM,
-           "ssm": MambaLM, "hybrid": MambaLM, "encdec": EncDecLM}
+           "ssm": MambaLM, "hybrid": MambaLM, "hybrid_moe": HybridMoELM, "encdec": EncDecLM}
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",

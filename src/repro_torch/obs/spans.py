@@ -44,8 +44,17 @@ ATTENTION = "repro_torch.attention"
 SERVE = "repro_torch.serve"
 # The model's prefill inside a ``SERVE`` span: ``serve_idle_ms.prefill``.
 PREFILL = "repro_torch.prefill"
+# One MoE layer, router to the add of the shared expert (``models/layers.py
+# moe_apply``): ``moe_share.prefill``, ``moe_launches.prefill``.
+MOE = "repro_torch.moe"
+# The routed experts' products inside a ``MOE`` span, from the rows in to
+# the expert outputs: ``moe_experts_roofline.prefill``.
+MOE_EXPERTS = "repro_torch.moe_experts"
 
+# The names that the benchmark's ``port_bench/spans.py`` spells too; its MoE
+# readers spell ``MOE`` and ``MOE_EXPERTS`` themselves.
 NAMES = (FORWARD, BACKWARD, ADAMW, MAMBA, ATTENTION, SERVE, PREFILL)
+MOE_NAMES = (MOE, MOE_EXPERTS)
 
 _OFF = contextlib.nullcontext()
 

@@ -97,6 +97,45 @@ def test_kernel_matches_the_blocked_function(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["granite", "granite_offset"])
+def test_kernel_takes_a_scale(cuda, case):
+    """granite-4.0-h's attention: head dim 128, 32 query heads over 8 K/V heads
+    (H / KV = 4) and the softmax scale 1/128 that it publishes in place of
+    128 ** -0.5, held to the blocked function at that scale."""
+    b, t, h, kvh, hd, s, off = {"granite": (2, 1024, 32, 8, 128, 1024, 0),
+                                "granite_offset": (1, 512, 32, 8, 128, 768, 256)}[case]
+    gen = torch.Generator(device=cuda).manual_seed(t + off)
+    q, k, v = _normal(gen, b, t, h, hd), _normal(gen, b, s, kvh, hd), _normal(gen, b, s, kvh, hd)
+    got = attn.causal_attention(q, k, v, q_offset=off, scale=1 / 128)
+    torch.cuda.synchronize()
+    _within(got, L.blocked_causal_attention(q, k, v, q_block=512, q_offset=off, scale=1 / 128), v)
+    default = attn.causal_attention(q, k, v, q_offset=off)
+    assert not torch.equal(got, default)
+
+
+@pytest.mark.cuda
+def test_a_nope_prefill_takes_the_kernel_at_its_scale(cuda):
+    """``attention_apply`` of a NoPE config with ``attn_scale``, in bf16 under
+    no_grad: one kernel launch, matching the blocked path without rotary
+    embeddings at the config's scale."""
+    cfg = smoke(get_config("granite-4.0-h-small"), head_dim=128, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p = L.init_attention(gen, cfg, device=cuda)
+    x = _normal(gen, 2, 40, cfg.d_model)
+    pos = torch.arange(40, device=cuda)[None].expand(2, 40)
+    reset_launch_counts()
+    with torch.no_grad():
+        y, (k, v) = L.attention_apply(p, x, cfg, positions=pos)
+        q, wk, wv = L._qkv(p, x, cfg)
+        out = L.blocked_causal_attention(q, wk, wv, q_block=512, scale=cfg.attn_scale)
+        want = L.merge_heads(out) @ p["wo"]
+    torch.cuda.synchronize()
+    assert launch_counts()["causal_attention"] == 1
+    assert torch.equal(k, wk) and torch.equal(v, wv)
+    _within(y, want, v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["prefill", "recorded", "float32"])
 def test_attention_apply_takes_the_kernel_only_where_nothing_records(cuda, mode):
     """A bf16 prefill under no_grad launches the kernel once and matches the

@@ -6,7 +6,14 @@ the CPU.  Tolerances: 2e-5 in float32 (sums in another order), 3e-2 in
 bf16 (the frameworks round at other places), the JAX suite's own kernel
 tolerances (``tests/test_kernels.py``).  MoE dispatch -- which slots are kept
 and where they go -- must be equal exactly, including where capacity binds.
+The dropless MoE, NoPE and the attention ``scale``, which the JAX package
+lacks, are held to ``port_bench/reference/granite_hybrid.py`` (plain float32)
+and to the JAX functions on queries scaled by hand.
 """
+import dataclasses
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,3 +225,101 @@ def test_moe_dispatch_sorts_stably():
     assert dsp.token_of.tolist() == [list(range(40))]
     assert dsp.keep[0].tolist() == [True] * dsp.cap + [False] * (40 - dsp.cap)
     assert dsp.slot[0, : dsp.cap].tolist() == [2 * dsp.cap + i for i in range(dsp.cap)]
+
+
+# ------------------------------------------- dropless MoE, NoPE and scale
+
+def _granite_reference():
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from port_bench.reference import granite_hybrid
+
+    return granite_hybrid
+
+
+def _skewed_moe(seed: int = 8):
+    """granite's smoke MoE (8 experts, 4 per token) with a router that sends
+    every token to experts 0-3 (their columns raised, the input positive),
+    and its input (2, 24, d)."""
+    cfg = smoke(get_config("granite-4.0-h-small"))
+    gen = torch.Generator().manual_seed(seed)
+    p = tl.init_moe(gen, cfg, device="cpu")
+    p["router"][:, :4] += 1.0
+    x = torch.from_numpy(np.abs(_normal(seed, 2, 24, cfg.d_model)) + 0.5)
+    return cfg, p, x
+
+
+def test_dropless_moe_drops_no_slot_where_capacity_would():
+    """With every token routed to the same 4 of 8 experts, the capacity path
+    (``capacity_factor`` 1.25) drops slots; the dropless path computes all
+    of them and matches the published routing (top-k logits, softmax over
+    them) of the plain reference, token by token."""
+    ref = _granite_reference()
+    cfg, p, x = _skewed_moe()
+    capped = dataclasses.replace(cfg, moe_dropless=False)
+    assert not bool(tl.moe_dispatch(p["router"], x, capped).keep.all())
+    got = tl.moe_apply(p, x, cfg)
+    s = ref.Shape.of(dataclasses.asdict(cfg))
+    for r in range(2):
+        _close(got[r], ref.moe(p, x[r], s), F32)
+    assert not torch.allclose(tl.moe_apply(p, x, capped), got, atol=1e-3)
+
+
+def test_dropless_and_capacity_agree_where_nothing_drops():
+    """A capacity large enough for every slot keeps them all: the two paths
+    compute the same sums (in another order and precision)."""
+    cfg, p, x = _skewed_moe(9)
+    p["router"][:, :4] -= 1.0  # the init's routing, spread over the experts
+    roomy = dataclasses.replace(cfg, moe_dropless=False, capacity_factor=float(cfg.n_experts))
+    assert bool(tl.moe_dispatch(p["router"], x, roomy).keep.all())
+    _close(tl.moe_apply(p, x, cfg), tl.moe_apply(p, x, roomy), F32)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_capacity_path_is_the_default_and_bit_equal_with_the_switch_off(arch):
+    cfg = smoke(get_config(arch))
+    assert cfg.moe_dropless is False
+    p = tl.init_moe(torch.Generator().manual_seed(3), cfg, device="cpu")
+    x = torch.from_numpy(_normal(3, 2, 16, cfg.d_model))
+    assert torch.equal(tl.moe_apply(p, x, cfg),
+                       tl.moe_apply(p, x, dataclasses.replace(cfg, moe_dropless=False)))
+
+
+@pytest.mark.parametrize("scale", [1 / 128, 0.3])
+def test_scale_through_the_blocked_and_decode_paths(scale):
+    """Scaling the scores by ``scale`` is the reference's attention of
+    queries multiplied by ``scale / hd ** -0.5``."""
+    q, k, v = _qkv_arrays(21, 12)
+    hd = q.shape[-1]
+    qs = q * np.float32(scale * hd ** 0.5)
+    got = tl.blocked_causal_attention(*map(torch.from_numpy, (q, k, v)), q_block=4, scale=scale)
+    _close(got, jl.blocked_causal_attention(*map(jnp.asarray, (qs, k, v)), q_block=4), F32)
+    q1, k1, v1 = _qkv_arrays(22, 1, s=10)
+    q1s = q1 * np.float32(scale * hd ** 0.5)
+    got = tl.decode_attention(*map(torch.from_numpy, (q1, k1, v1)), 7, scale=scale)
+    _close(got, jl.decode_attention(*map(jnp.asarray, (q1s, k1, v1)), jnp.int32(7)), F32)
+
+
+def test_nope_attention_apply_prefill_then_decode():
+    """granite's attention (no positional embedding, scale 1/128): the
+    prefill is the blocked attention of unrotated q and k at that scale, and
+    decoding position 7 from a cache of the first 7 gives the prefill's row."""
+    cfg = smoke(get_config("granite-4.0-h-small"))
+    assert not cfg.use_rope and cfg.attn_scale == 1 / 128
+    p = tl.init_attention(torch.Generator().manual_seed(5), cfg, device="cpu")
+    x = torch.from_numpy(_normal(6, 2, 8, cfg.d_model))
+    pos = torch.arange(8)[None].expand(2, 8)
+    y, (k, v) = tl.attention_apply(p, x, cfg, positions=pos)
+    q, wk, wv = tl._qkv(p, x, cfg)
+    assert torch.equal(k, wk) and torch.equal(v, wv)  # no rotary
+    want = tl.merge_heads(tl.blocked_causal_attention(q, wk, wv, q_block=512, scale=1 / 128))
+    _close(y, want @ p["wo"], F32)
+    shifted, _ = tl.attention_apply(p, x, cfg, positions=pos + 5)
+    assert torch.equal(shifted, y)  # positions do not enter
+    kc = torch.zeros((2, 8, cfg.n_kv_heads, cfg.hd()))
+    vc = torch.zeros_like(kc)
+    kc[:, :7], vc[:, :7] = k[:, :7], v[:, :7]
+    y7, _ = tl.attention_apply(p, x[:, 7:8], cfg, positions=pos[:, 7:8], kv_cache=(kc, vc),
+                               cache_len=8)
+    _close(y7[:, 0], y[:, 7], F32)

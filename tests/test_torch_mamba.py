@@ -8,6 +8,8 @@ Token ids and activations are made with numpy from a seed.  Tolerance is
 (``tests/test_kernels.py``): the port scans sequentially on the CPU where the
 reference scans by chunks, and matmuls sum in another order.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ from repro.models.config import smoke as j_smoke
 from repro.models.model import MambaLM as JMambaLM
 from repro_torch.configs import get_config
 from repro_torch.models import mamba2 as tm
-from repro_torch.models.config import smoke
+from repro_torch.models.config import ModelConfig, smoke
 from repro_torch.models.convert import load_jax_params, param_names
 from repro_torch.models.model import per_layer, build_model
 
@@ -47,10 +49,24 @@ def _tokens(seed, vocab, b, t):
     return np.random.default_rng(seed).integers(0, vocab, (b, t))
 
 
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
 def test_configs_are_copied():
+    """Every field of the reference's config has the reference's value; the
+    fields the port adds (granite-4.0-h's layer pattern, scalings, NoPE,
+    dropless routing) keep their defaults, which leave the model as it was."""
+    defaults = _fields(ModelConfig(name="", family="", n_layers=0, d_model=0, n_heads=0,
+                                   n_kv_heads=0, d_ff=0, vocab=0))
     for name in ("mamba2-1.3b", "zamba2-2.7b", "qwen2.5-3b"):
-        assert repr(get_config(name)) == repr(j_get_config(name))
-        assert repr(smoke(get_config(name))) == repr(j_smoke(j_get_config(name)))
+        for port, ref in ((get_config(name), j_get_config(name)),
+                          (smoke(get_config(name)), j_smoke(j_get_config(name)))):
+            got, want = _fields(port), _fields(ref)
+            assert {k: got[k] for k in want} == want
+            assert [k for k in got if k in want] == list(want)
+            assert {k: got[k] for k in set(got) - set(want)} == \
+                {k: defaults[k] for k in set(got) - set(want)}
 
 
 def test_convert_carries_every_leaf(pair):

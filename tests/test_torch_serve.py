@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS  # the architectures the JAX reference has
 from repro.configs import get_config as j_get_config
 from repro.models.config import smoke as j_smoke
 from repro.models.model import MambaLM as JMambaLM
 from repro.models.model import build_model as j_build_model
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models.config import smoke
 from repro_torch.models.convert import load_jax_params

@@ -38,13 +38,14 @@ import pytest
 import torch
 
 from _port import model_pair
+from repro.configs import ARCHS  # the architectures the JAX reference has
 from repro.data import pipeline as jpipe
 from repro.launch import train as jtrain
 from repro.optim import adamw as jadamw
 from repro.train import steps as jsteps
 from repro_torch.checkpoint import _tree
 from repro_torch.checkpoint.zapraid_ckpt import CheckpointConfig, CheckpointEngine
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import get_config
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import train as ttrain
 from repro_torch.models import convert
