@@ -47,7 +47,11 @@ failing on the first error:
    offset, local chunks and rows with no key in their chunk; timed at
    zamba2-2.7b's prefill (``ATTN_SHAPE``) beside its bound (FLOPs over the
    bf16 tensor-core rate), the blocked path and, as the library's
-   yardstick only, ``scaled_dot_product_attention``;
+   yardstick only, ``scaled_dot_product_attention``.  The Mamba-2 block's
+   prefill glue kernels (conv + bias + SiLU with the conv tail; D skip +
+   gate + RMSNorm) against their plain versions at mamba2-1.3b's prefill
+   block (``GLUE_SHAPE``), timed beside their byte bounds and the plain
+   chain's glue they replace;
 2. RAID-5 end to end -- ZapRAID's hybrid deployment (3+1 drives, 4 KiB
    blocks, one Zone-Append segment of 8 KiB chunks with G=256, three
    Zone-Write segments of 16 KiB chunks) filled once by a seeded stream of
@@ -77,8 +81,8 @@ failing on the first error:
    layers) and ``hybrid_*`` (zamba2-2.7b, 54 Mamba-2 layers and a shared
    attention block applied 9 times) each run ``_setup``, ``_serve``
    (prefill and decode tokens/s, peak device memory, finite logits; 48 or
-   54 launches of each SSD kernel per prefill call, none for the dense
-   model; one launch of the attention kernel per attention application,
+   54 launches of each SSD kernel and each Mamba-2 glue kernel per prefill
+   call, none for the dense model; one launch of the attention kernel per attention application,
    36 a prefill call for qwen2.5-3b, 9 for zamba2-2.7b, none for
    mamba2-1.3b), ``_profile`` (device time by kernel and the card's idle share of
    one prefill call and one decode step) and ``_decode_check`` (in f32,
@@ -285,6 +289,14 @@ ATTN_CASES = (
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 2.0 ** -8
 # zamba2-2.7b's shared attention at its prefill cell (8 prompts of 4,096).
 ATTN_SHAPE = dict(batch=8, t=4096, heads=32, head_dim=80)
+# The Mamba-2 block's glue kernels at mamba2-1.3b.prefill-16x2k's block (16
+# prompts of 2,048, d_inner 4,096, N 128, 64 heads of 64, conv width 4).
+# Each kernel and its plain version do the same f32 arithmetic before one
+# rounding to bf16, so they differ by at most one ulp, 2^-7 of the value,
+# plus (the norm's y + D x, which the kernel may fuse into an FMA) an f32
+# residue where the sum cancels, far below GLUE_ATOL of the largest value.
+GLUE_SHAPE = dict(batch=16, t=2048, d_inner=4096, n=128, head_dim=64, width=4)
+GLUE_ULP, GLUE_ATOL = 2.0 ** -7, 2.0 ** -16
 # llama4-scout's full width (16 experts of 8,192, top-1, a shared expert;
 # 6.47 B parameters in two layers, 12.9 GB of bf16), its depth cut to
 # ``layers`` of 48 to fit one card: one batch served.  paligemma-3b: a
@@ -1285,6 +1297,87 @@ def attention_checks() -> dict:
     }
 
 
+def mamba_glue_checks() -> list[dict]:
+    """Hold the Mamba-2 block's two glue kernels (``kernels/mamba_glue.py``)
+    to their plain versions on the card at ``GLUE_SHAPE`` (within one bf16
+    ulp, the norm at a unit scale and a drawn scale applied exactly; the
+    conv tail bit-equal), then time each beside its bound (its
+    bytes over the memory rate) and the device time of the plain chain's
+    glue it replaces in ``mamba_apply``: the concatenation, the tap-by-tap
+    conv, its bias and the SiLU; the cast of the scan's output, the D skip,
+    the gate and the RMSNorm.  Returns the two kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba_glue as G
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models.layers import merge_heads, rmsnorm, split_heads
+
+    b, t, di, n, pdim, w = (GLUE_SHAPE[k] for k in ("batch", "t", "d_inner", "n", "head_dim",
+                                                   "width"))
+    h, ch, eps = di // pdim, di + 2 * n, 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def normal(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    xs, bb, cc, z = normal(b, t, di), normal(b, t, n), normal(b, t, n), normal(b, t, di)
+    conv_w, conv_b = normal(w, ch, scale=0.2), normal(ch, scale=0.1)
+    d_skip = torch.rand(h, generator=gen, device="cuda") + 0.5
+    norm = (1.0 + normal(di, scale=0.5, dtype=torch.float32)).bfloat16()
+    y = normal(b, t, h, pdim, dtype=torch.float32)
+
+    def over_limit(got, want) -> float:
+        """The largest error over its limit (<= 1 within it)."""
+        mag = want.float().abs()
+        return float(((got.float() - want.float()).abs()
+                      / (GLUE_ULP * mag + GLUE_ATOL * mag.max())).max())
+
+    out, tail = G.mamba_conv(xs, bb, cc, conv_w, conv_b)
+    want, want_tail = G.mamba_conv_plain(xs, bb, cc, conv_w, conv_b)
+    conv_over = over_limit(out, want)
+    if not torch.equal(tail, want_tail) or conv_over > 1:
+        raise AssertionError(f"mamba_conv at {GLUE_SHAPE}: tail equal "
+                             f"{torch.equal(tail, want_tail)}, {conv_over} x its limit from its "
+                             "plain version")
+    x2 = split_heads(out[..., :di], h, pdim)
+    ones = torch.ones_like(norm)
+    unit = G.mamba_gate_norm(y, x2, z, d_skip, ones, eps)
+    norm_over = over_limit(unit, G.mamba_gate_norm_plain(y, x2, z, d_skip, ones, eps))
+    scaled = torch.equal(G.mamba_gate_norm(y, x2, z, d_skip, norm, eps), unit * norm)
+    if norm_over > 1 or not scaled:
+        raise AssertionError(f"mamba_gate_norm at {GLUE_SHAPE}: {norm_over} x its limit "
+                             f"from its plain version at a unit scale; scaled exactly {scaled}")
+    del want, want_tail, unit
+
+    def plain_conv(xs_, bb_, cc_):
+        return F.silu(M.causal_conv(torch.cat([xs_, bb_, cc_], -1), conv_w, conv_b))
+
+    def plain_norm(y_, x_, z_):
+        yb = y_.to(torch.bfloat16) + x_ * d_skip.to(torch.bfloat16).reshape(1, 1, h, 1)
+        return rmsnorm(merge_heads(yb) * F.silu(z_), norm, eps)
+
+    rows = []
+    for name, fn, plain, args, nbytes, over in (
+            ("mamba_conv", lambda *a: G.mamba_conv(*a, conv_w, conv_b), plain_conv,
+             (xs, bb, cc), 2 * 2 * b * t * ch + 2 * b * (w - 1) * ch + 2 * (w + 1) * ch,
+             conv_over),
+            ("mamba_gate_norm", lambda *a: G.mamba_gate_norm(*a, d_skip, norm, eps), plain_norm,
+             (y, x2, z), b * t * di * (4 + 2 + 2 + 2) + 4 * h + 2 * di, norm_over)):
+        ms, call_ms = _time_ms(fn, [args], 20)
+        plain_ms, plain_call_ms = _time_ms(plain, [args], 5)
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/mamba_glue.cu",
+            "replaces": "none (counterpart of the jnp glue of src/repro/models/mamba2.py "
+                        "mamba_apply)",
+            "launches": 0, "worst_error_over_limit": over, "shape": GLUE_SHAPE, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+            "bound_ms": byte_ms, "bound_by": "bytes", "bytes": nbytes,
+            "bytes_us": 1e3 * byte_ms, "bound_share": byte_ms / ms,
+        })
+    return rows
+
+
 def bwd_tensor_core_instructions(library: Path) -> dict[str, int]:
     """HMMA/HGMMA instructions in the SASS of each instance of the
     backward's three product kernels (the state pass, the per-chunk
@@ -2074,15 +2167,18 @@ def decode_matches_prefill(arch: str, seed: int, ph: Phase, device: str = "cuda"
                     "logit_abs_max": float(want.abs().max())})
 
 
-SSD_KERNELS = ("ssd_scan", "ssd_chunk_gram")
+# Launched once per Mamba-2 layer and prefill call: the SSD scan's two
+# kernels and, on a bf16 prefill, the block's two glue kernels.
+MAMBA_KERNELS = ("ssd_scan", "ssd_chunk_gram", "mamba_conv", "mamba_gate_norm")
 
 
 def serving_path(tag: str, arch: str, seed: int) -> dict:
     """Phases ``<tag>_setup``, ``<tag>_serve``, ``<tag>_profile`` and
     ``<tag>_decode_check`` of ``arch`` at full width on the card.  The
     launch counts are zeroed just before the serving run and read just
-    after it: a Mamba-2 family must have launched each SSD kernel once per
-    layer and prefill call, every other family none; returns them."""
+    after it: a Mamba-2 family must have launched each SSD kernel and each
+    glue kernel once per layer and prefill call, every other family none;
+    returns them."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -2094,7 +2190,7 @@ def serving_path(tag: str, arch: str, seed: int) -> dict:
     counts = launch_counts()  # read just after it
     cfg = model.cfg
     ssm = cfg.family in ("ssm", "hybrid")
-    want = {name: cfg.n_layers * st.prefill_calls if ssm else 0 for name in SSD_KERNELS}
+    want = {name: cfg.n_layers * st.prefill_calls if ssm else 0 for name in MAMBA_KERNELS}
     # one attention kernel per attention application of a prefill call
     apps = model.n_apps if ssm else cfg.n_layers
     want["causal_attention"] = apps * st.prefill_calls
@@ -3171,13 +3267,14 @@ def main() -> int:
         trips = codec_round_trips()
         ssd_rows = ssd_checks()
         attn_row = attention_checks()
+        glue_rows = mamba_glue_checks()
         ph.info.update(gpu=gpu, link=rates, launch_floor=floor, round_trips=trips)
         ph.info["kernels"] = [
             {k: r[k] for k in ("name", "shape", "ms", "call_ms", "plain_ms",
                                "plain_call_ms", "bytes_us", "ops_us", "bound_by",
                                "cases", "form", "device_operands") if k in r}
             for r in rows]
-        for r in ssd_rows + [attn_row]:
+        for r in ssd_rows + [attn_row] + glue_rows:
             ph.info[r["name"]] = {k: v for k, v in r.items()
                                   if k not in ("route", "source", "replaces", "launches")}
 

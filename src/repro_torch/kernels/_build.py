@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "codec.cu", CSRC / "ssd_scan.cu", CSRC / "ssd_scan_bwd.cu",
-           CSRC / "attention.cu")
+           CSRC / "attention.cu", CSRC / "mamba_glue.cu")
 HEADERS = (CSRC / "ssd_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -132,6 +132,10 @@ def load() -> ctypes.CDLL:
             lib.ssd_scan_bwd.restype = i
             lib.causal_attention.argtypes = [vp, vp, vp, vp, *[i] * 8, ctypes.c_float, vp, vp]
             lib.causal_attention.restype = i
+            lib.mamba_conv.argtypes = [*[vp] * 7, *[i] * 5, vp, vp]
+            lib.mamba_conv.restype = i
+            lib.mamba_gate_norm.argtypes = [*[vp] * 6, *[i] * 4, ctypes.c_float, vp, vp]
+            lib.mamba_gate_norm.restype = i
             _lib = lib
         return _lib
 

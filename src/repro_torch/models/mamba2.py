@@ -10,7 +10,10 @@ on the card, and the dt = 0 padding of a ragged T and the slice back to T
 pass their gradients through.  On DTensors (a device mesh) the scan and the
 causal conv run on each rank's shards (``local_map``).  Decode is the
 single-step recurrence in plain torch, as in the reference.  B/C
-projections are shared across heads (ngroups=1).
+projections are shared across heads (ngroups=1).  A prefill of bf16 tensors
+on the card that autograd does not record runs the glue around the scan
+(conv, SiLU, D skip, gate, RMSNorm) as two CUDA kernels
+(``kernels/mamba_glue.py``); everything else runs the plain chain below.
 
 Block structure (Mamba-2 paper):
   in-proj -> [z | x | B | C | dt] -> causal conv(x,B,C) -> silu
@@ -26,7 +29,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import mamba_glue, ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, merge_heads, normal_init, rmsnorm, split_heads
 from repro_torch.obs import spans
@@ -100,7 +103,13 @@ def ssd_chunked(x, dt, a, b, c, h0=None, *, chunk: int):
     b, c: (B,T,N) shared across heads.  Returns (y (B,T,H,P) in x's dtype,
     h (B,H,N,P) float32).  A ragged T is padded with dt=0 steps, which are
     exact identities (decay exp(0)=1, no input)."""
-    out_dtype = x.dtype
+    y, h_final = ssd_padded(x, dt, a, b, c, h0, chunk=chunk)
+    return y[:, :x.shape[1]].to(x.dtype), h_final
+
+
+def ssd_padded(x, dt, a, b, c, h0=None, *, chunk: int):
+    """:func:`ssd_chunked`'s scan with y as the scan wrote it: (B,T',H,P)
+    float32 over T padded to a multiple of the chunk."""
     t = x.shape[1]
     q = min(chunk, t)
     pad = (-t) % q
@@ -117,8 +126,7 @@ def ssd_chunked(x, dt, a, b, c, h0=None, *, chunk: int):
     mesh = _dtensor_mesh(x)
     if mesh is not None:
         scan = _per_shard(scan, mesh, tuple(x.shape), h0 is not None)
-    y, h_final = scan(*args)
-    return y[:, :t].to(out_dtype), h_final
+    return scan(*args)
 
 
 def _dtensor_mesh(x):
@@ -214,10 +222,44 @@ def _per_shard(scan, mesh, x_shape, with_h0: bool):
                      device_mesh=mesh, redistribute_inputs=True)
 
 
+def _takes_fused(p, x, xs) -> bool:
+    """Whether a prefill block's glue goes to the CUDA kernels
+    (``kernels/mamba_glue.py``), as the operands show: bf16 tensors on the
+    card, no DTensor and nothing that autograd records (the kernels have no
+    backward).  Everything else keeps the plain chain.  A shape the kernels
+    do not take is not routed around them: their wrappers raise with the
+    reason, so a bf16 prefill on the card never runs the slow chain
+    unnoticed."""
+    if not x.is_cuda or xs.dtype != torch.bfloat16:
+        return False
+    if _dtensor_mesh(x) is not None or _dtensor_mesh(xs) is not None:
+        return False
+    return not (torch.is_grad_enabled()
+                and (x.requires_grad or any(v.requires_grad for v in p.values())))
+
+
+def _fused_prefill(p, cfg: ModelConfig, xs, bb, cc, z, dt, a):
+    """A prefill block's glue as two kernels around the SSD scan: the conv
+    with its bias and SiLU, which also writes the conv tail as a tensor of
+    its own, so no (B,T,C) conv input is built or kept; the scan on views of
+    its output; then D skip, gate and RMSNorm from the scan's f32 output as
+    it wrote it."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    conv_out, tail = mamba_glue.mamba_conv(xs, bb, cc, p["conv_w"], p["conv_b"])
+    xs2 = split_heads(conv_out[..., :di], cfg.ssm_nheads, cfg.ssm_head_dim)
+    y, final_state = ssd_padded(xs2, dt, a, conv_out[..., di:di + n], conv_out[..., di + n:],
+                                chunk=cfg.ssm_chunk)
+    y = mamba_glue.mamba_gate_norm(y, xs2, z, p["d_skip"], p["norm"], cfg.norm_eps)
+    return y @ p["w_out"], (tail, final_state)
+
+
 def mamba_apply(p, x, cfg: ModelConfig, *, state=None):
     """Mamba-2 block.  Prefill: state=None.  Decode: state is
     (conv_state (B,W-1,C), ssd_state (B,H,N,P)) and x is (B,1,D).
-    Returns (out, (conv_state, ssd_state))."""
+    Returns (out, (conv_state, ssd_state)).  A prefill of bf16 tensors on
+    the card that autograd does not record runs its glue as two CUDA kernels
+    (:func:`_fused_prefill`); its conv tail is then a tensor of its own,
+    where the plain chain's is a view of the whole conv input."""
     with spans.span(spans.MAMBA):
         b_sz, t, _ = x.shape
         di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
@@ -228,6 +270,8 @@ def mamba_apply(p, x, cfg: ModelConfig, *, state=None):
         cc = x @ p["w_c"]
         dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])
         a = -torch.exp(p["a_log"])
+        if state is None and _takes_fused(p, x, xs):
+            return _fused_prefill(p, cfg, xs, bb, cc, z, dt, a)
 
         conv_in = torch.cat([xs, bb.to(xs.dtype), cc.to(xs.dtype)], -1)
         if state is None:

@@ -704,9 +704,9 @@ class HybridMoELM(_LM):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """tokens (B,T) -> (logits of the last position (B,1,V), cache).
-        Each layer's state is copied into the cache as the layer ends: a
-        Mamba-2 block's conv tail is a view of its whole conv input, which
-        would otherwise stay alive until the last layer."""
+        Each layer's state is copied into the cache as the layer ends: on
+        the plain chain a Mamba-2 block's conv tail is a view of its whole
+        conv input, which would otherwise stay alive until the last layer."""
         x = self._embed(tokens)
         b, t = tokens.shape
         positions = _positions(b, t, x.device)
