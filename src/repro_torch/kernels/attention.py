@@ -9,11 +9,13 @@ output rounded once to bf16.  The kernel's design, and why it
 rounds the unnormalised weights (one pass), are in its source.
 
 It replaces no Pallas kernel: the JAX package's attention is ``jnp`` code,
-whose counterpart is the blocked function, and that stays the plain version
-(the path of CPU tensors, of float32 models and of training, which records a
-graph; this kernel has no backward).  ``models/layers.py prefill_attention``
-picks between the two; this wrapper takes CUDA tensors only and launches
-through the operator ``repro_torch::causal_attention``.
+whose counterpart is the blocked function, and that stays the plain version:
+``models/layers.py prefill_attention`` runs it where :func:`takes` refuses
+the operands (CPU tensors, float32 models, DTensors and training, which
+records a graph; this kernel has no backward), and this wrapper otherwise.
+The wrapper raises for what the kernel does not take, a head dim without an
+instance among it, and launches through the operator
+``repro_torch::causal_attention``.
 
 Operands: q (B, T, H, hd) and k, v (B, S, KV, hd), bf16 on one CUDA device,
 H a multiple of KV, hd one of ``HEAD_DIMS``, each with a contiguous last
@@ -29,10 +31,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, route
 
-HEAD_DIMS = (64, 80, 128, 256)
+HEAD_DIMS = (16, 64, 80, 128, 256)
 LAUNCHES = {"causal_attention": 0}
+
+
+def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a prefill's q, k, v go to the kernel: ``route.forward_only``."""
+    return route.forward_only((q, k, v))
 
 
 def attention_flops(b: int, t: int, h: int, hd: int) -> int:
@@ -82,8 +89,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # The launch as an operator of its own (``repro_torch::causal_attention``),
 # as the SSD scan's: a profiler puts the kernel's device time under it, and
 # so under the span of the layer that called it, and fake tensors trace it
-# through its shape function.  It has no autograd rule: ``models/layers.py``
-# routes a graph that autograd records to the blocked function.
+# through its shape function.  It has no autograd rule: :func:`takes` sends a
+# graph that autograd records to the blocked function.
 
 @torch.library.custom_op("repro_torch::causal_attention", mutates_args=())
 def causal_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,

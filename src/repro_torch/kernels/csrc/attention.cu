@@ -53,7 +53,8 @@
 //
 // The entry point launches on `stream` and returns cudaGetLastError() as
 // an int (0 on success).  hd is a template parameter: 64, 80 (5 k-steps of
-// 16), 128 and 256, the head dims of the port's configurations.
+// 16), 128 and 256, the head dims of the port's configurations, and 16, the
+// head dim of their smoke sizes (one k-step; P V is one m64n16k16).
 
 #include "ssd_common.cuh"
 
@@ -70,6 +71,7 @@ constexpr int kBN = 64;  // keys per K/V tile
 // block of the same with more registers (4.4 ms against 3.0 at hd 80), and
 // one or three warpgroups a block.  hd 256's O alone takes 128 registers.
 template <int HD> struct Shape;
+template <> struct Shape<16> { static constexpr int kWG = 2, kMinBlocks = 2; };
 template <> struct Shape<64> { static constexpr int kWG = 2, kMinBlocks = 2; };
 template <> struct Shape<80> { static constexpr int kWG = 2, kMinBlocks = 2; };
 template <> struct Shape<128> { static constexpr int kWG = 2, kMinBlocks = 2; };
@@ -140,6 +142,19 @@ template <> struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<16> {
+  // d += A B: A in registers, B in shared memory, MN-major.
+  __device__ __forceinline__ static void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
@@ -488,6 +503,7 @@ extern "C" int causal_attention(const void* q, const void* k, const void* v, voi
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch<16>(p, batch, st);
     case 64: return launch<64>(p, batch, st);
     case 80: return launch<80>(p, batch, st);
     case 128: return launch<128>(p, batch, st);

@@ -22,12 +22,12 @@ the kernels to.
 
 They replace no Pallas kernel: the JAX package's glue is ``jnp`` code, whose
 plain counterpart is ``mamba_apply``'s own chain, and that stays the path of
-CPU tensors, float32 models, training (these kernels have no backward),
-decode and DTensors.  ``mamba_apply`` picks the route from its operands'
-device, dtype and autograd state, not from their shapes: the checked
-wrappers :func:`mamba_conv` and :func:`mamba_gate_norm` raise for a shape
-the kernels do not take, with :func:`conv_refusal`'s or
-:func:`norm_refusal`'s reason.  The launches are the operators
+decode and of every prefill block that :func:`takes` refuses: CPU tensors,
+float32 models, DTensors and training (these kernels have no backward).
+The route never looks at shapes: the checked wrappers :func:`mamba_conv` and
+:func:`mamba_gate_norm` raise for a shape the kernels do not take, with
+:func:`conv_refusal`'s or :func:`norm_refusal`'s reason, so a bf16 prefill on
+the card never runs the slow chain unnoticed.  The launches are the operators
 ``repro_torch::mamba_conv`` and ``repro_torch::mamba_gate_norm``, so a
 profiler puts their device time under the block's span.
 
@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, route
 
 WIDTHS = (4,)           # conv widths with an instance
 MAX_INNER = 8192        # d_inner limit of the norm's one block a row
@@ -55,6 +55,14 @@ def _rows_ok(x: torch.Tensor) -> bool:
     dense = all(x.stride(d) == x.shape[d + 1:].numel() for d in range(2, x.ndim))
     return (dense and inner % per16 == 0 and x.data_ptr() % 16 == 0
             and x.stride(0) % per16 == 0 and x.stride(1) % per16 == 0)
+
+
+def takes(xs, bb, cc, z, dt, a, conv_w, conv_b, d_skip, norm) -> bool:
+    """Whether a prefill block's glue goes to the kernels:
+    ``route.forward_only`` of its projections xs, bb, cc and z, of dt and A,
+    which the scan between the two kernels reads, and of the four weights
+    the kernels read."""
+    return route.forward_only((xs, bb, cc, z), (dt, a, conv_w, conv_b, d_skip, norm))
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -183,8 +191,8 @@ def _require(reason: str | None) -> None:
 # The launches as operators of their own, as the SSD scan's and attention's:
 # a profiler puts the kernels' device time under them, and so under the
 # span of the block that called them, and fake tensors trace them through
-# their shape functions.  They have no autograd rule: ``mamba_apply`` routes
-# a graph that autograd records to the plain chain.
+# their shape functions.  They have no autograd rule: :func:`takes` sends a
+# graph that autograd records to the plain chain.
 
 @torch.library.custom_op("repro_torch::mamba_conv", mutates_args=())
 def mamba_conv_op(xs: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor, conv_w: torch.Tensor,

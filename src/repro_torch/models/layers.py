@@ -16,9 +16,9 @@ The counterparts of the serving functions of the JAX package's
   the T x T score matrix never materialises whole.  It is plain torch
   written as the reference writes it (f32 scores, masks of ``-1e30``, the
   blocked causal softmax), not ``scaled_dot_product_attention``.  A
-  prefill on bf16 CUDA tensors that autograd does not record runs the same
-  function as one launch of the port's own kernel instead
-  (``kernels/attention.py``; :func:`prefill_attention`);
+  prefill whose operands the port's own kernel takes (``kernels/attention.py``
+  ``takes``) runs the same function as one launch of it instead
+  (:func:`prefill_attention`);
 * the MoE dispatch sorts tokens by expert within each batch row (stably, as
   ``jnp.argsort``), scattering into an (E, C, D) capacity buffer; with
   ``cfg.moe_dropless`` every routed slot is computed instead, the experts'
@@ -34,13 +34,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import sys
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import attention as attention_kernel
+from repro_torch.kernels.route import is_dtensor
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import spans
 
@@ -63,13 +63,6 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 TP_AXES = {"heads", "kv", "ff", "vocab", "experts",
            "ssm_inner", "ssm_heads", "ssm_conv_ch"}
-
-
-def is_dtensor(x) -> bool:
-    """Whether ``x`` is a DTensor (without importing DTensor when nothing
-    has)."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def replicated_like(t: torch.Tensor, like) -> torch.Tensor:
@@ -390,17 +383,14 @@ def blocked_causal_attention(q, k, v, *, q_block: int, q_offset: int = 0,
 def prefill_attention(q, k, v, *, q_block: int, q_offset: int = 0, attn_chunk: int = 0,
                       scale: float | None = None):
     """Causal GQA attention of a prefill: what :func:`blocked_causal_attention`
-    computes, as one launch of the CUDA kernel (``kernels/attention.py``)
-    where the operands show it can: bf16 tensors on the card that autograd
-    does not record (the kernel has no backward).  Everything else -- CPU
-    tensors, float32 models, a training step -- takes the blocked function.
-    A head dim the kernel has no instance for raises.  On DTensors it runs
-    on each rank's batch rows and heads (:func:`per_head_shard`)."""
+    computes, as one launch of the CUDA kernel where it takes the operands
+    (``kernels/attention.py`` ``takes``; its wrapper raises for a head dim
+    without an instance), the blocked function otherwise.  On DTensors it
+    runs on each rank's batch rows and heads (:func:`per_head_shard`)."""
     if is_dtensor(q):
         return per_head_shard(prefill_attention, q, k, v, q_block=q_block, q_offset=q_offset,
                               attn_chunk=attn_chunk, scale=scale)
-    recorded = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    if q.is_cuda and q.dtype == torch.bfloat16 and not recorded:
+    if attention_kernel.takes(q, k, v):
         return attention_kernel.causal_attention(q, k, v, q_offset=q_offset,
                                                  attn_chunk=attn_chunk, scale=scale)
     return blocked_causal_attention(q, k, v, q_block=q_block, q_offset=q_offset,

@@ -10,10 +10,10 @@ on the card, and the dt = 0 padding of a ragged T and the slice back to T
 pass their gradients through.  On DTensors (a device mesh) the scan and the
 causal conv run on each rank's shards (``local_map``).  Decode is the
 single-step recurrence in plain torch, as in the reference.  B/C
-projections are shared across heads (ngroups=1).  A prefill of bf16 tensors
-on the card that autograd does not record runs the glue around the scan
-(conv, SiLU, D skip, gate, RMSNorm) as two CUDA kernels
-(``kernels/mamba_glue.py``); everything else runs the plain chain below.
+projections are shared across heads (ngroups=1).  A prefill block that the
+glue kernels take (``kernels/mamba_glue.py`` ``takes``) runs the glue around
+the scan (conv, SiLU, D skip, gate, RMSNorm) as two CUDA kernels; every
+other block runs the plain chain below.
 
 Block structure (Mamba-2 paper):
   in-proj -> [z | x | B | C | dt] -> causal conv(x,B,C) -> silu
@@ -24,14 +24,14 @@ Weights keep the reference's (in, out) layout: a projection is ``x @ w``.
 from __future__ import annotations
 
 import math
-import sys
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_glue, ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dtype_of, merge_heads, normal_init, rmsnorm, split_heads
+from repro_torch.models.layers import (dtype_of, is_dtensor, merge_heads, normal_init, rmsnorm,
+                                       split_heads)
 from repro_torch.obs import spans
 
 
@@ -85,9 +85,8 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     x: (B,T,C), w: (W,C).  On DTensors it runs on each rank's batch rows
     and channels (``local_map``): the taps slice time, which no rank
     splits, and channels never mix."""
-    mesh = _dtensor_mesh(x)
-    if mesh is not None:
-        return _conv_per_shard(mesh, x.shape)(x, w, b)
+    if is_dtensor(x):
+        return _conv_per_shard(x.device_mesh, x.shape)(x, w, b)
     width, t = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = xp[:, :t, :].float() * w[0].float()
@@ -123,16 +122,9 @@ def ssd_padded(x, dt, a, b, c, h0=None, *, chunk: int):
     def scan(*operands):
         return ops.ssd_chunk_scan(*operands, chunk=q)
 
-    mesh = _dtensor_mesh(x)
-    if mesh is not None:
-        scan = _per_shard(scan, mesh, tuple(x.shape), h0 is not None)
+    if is_dtensor(x):
+        scan = _per_shard(scan, x.device_mesh, tuple(x.shape), h0 is not None)
     return scan(*args)
-
-
-def _dtensor_mesh(x):
-    """The device mesh of a DTensor, None for a plain tensor."""
-    dtensor = sys.modules.get("torch.distributed.tensor")
-    return x.device_mesh if dtensor is not None and isinstance(x, dtensor.DTensor) else None
 
 
 def _conv_per_shard(mesh, x_shape):
@@ -222,20 +214,77 @@ def _per_shard(scan, mesh, x_shape, with_h0: bool):
                      device_mesh=mesh, redistribute_inputs=True)
 
 
-def _takes_fused(p, x, xs) -> bool:
-    """Whether a prefill block's glue goes to the CUDA kernels
-    (``kernels/mamba_glue.py``), as the operands show: bf16 tensors on the
-    card, no DTensor and nothing that autograd records (the kernels have no
-    backward).  Everything else keeps the plain chain.  A shape the kernels
-    do not take is not routed around them: their wrappers raise with the
-    reason, so a bf16 prefill on the card never runs the slow chain
-    unnoticed."""
-    if not x.is_cuda or xs.dtype != torch.bfloat16:
-        return False
-    if _dtensor_mesh(x) is not None or _dtensor_mesh(xs) is not None:
-        return False
-    return not (torch.is_grad_enabled()
-                and (x.requires_grad or any(v.requires_grad for v in p.values())))
+def zero_states(cfg: ModelConfig, n_layers: int, batch_size: int,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The zeroed decode state of ``n_layers`` blocks: conv (n, B, W-1, C)
+    in the model's dtype and ssd (n, B, H, N, P) float32."""
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    conv = torch.zeros((n_layers, batch_size, cfg.ssm_conv - 1, ch), dtype=dtype_of(cfg),
+                       device=device)
+    ssd = torch.zeros((n_layers, batch_size, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim),
+                      dtype=torch.float32, device=device)
+    return conv, ssd
+
+
+def mamba_apply(p, x, cfg: ModelConfig, *, state=None):
+    """Mamba-2 block.  Prefill: state=None.  Decode: state is
+    (conv_state (B,W-1,C), ssd_state (B,H,N,P)) and x is (B,1,D).
+    Returns (out, (conv_state, ssd_state)).  A prefill block that
+    ``mamba_glue.takes`` runs its glue as two kernels (:func:`_fused_prefill`);
+    every other block the plain chain: the conv and scan of a prefill
+    (:func:`_plain_prefill`) or of a decode step (:func:`_decode_step`), then
+    D skip, gate and RMSNorm."""
+    with spans.span(spans.MAMBA):
+        z = x @ p["w_z"]
+        xs = x @ p["w_x"]
+        bb = x @ p["w_b"]
+        cc = x @ p["w_c"]
+        dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])
+        a = -torch.exp(p["a_log"])
+        if state is None and mamba_glue.takes(xs, bb, cc, z, dt, a, p["conv_w"], p["conv_b"],
+                                              p["d_skip"], p["norm"]):
+            return _fused_prefill(p, cfg, xs, bb, cc, z, dt, a)
+        conv_in = torch.cat([xs, bb.to(xs.dtype), cc.to(xs.dtype)], -1)
+        if state is None:
+            xs2, y, new_state = _plain_prefill(p, cfg, conv_in, dt, a)
+        else:
+            xs2, y, new_state = _decode_step(p, cfg, conv_in, dt, a, state)
+        y = y + xs2 * p["d_skip"].to(y.dtype).reshape(1, 1, cfg.ssm_nheads, 1)
+        y = rmsnorm(merge_heads(y) * F.silu(z), p["norm"], cfg.norm_eps)
+        return y @ p["w_out"], new_state
+
+
+def _split_conv(conv_out, cfg: ModelConfig):
+    """The conv output's x (a strided (B,T,H,P) view), B and C."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return (split_heads(conv_out[..., :di], cfg.ssm_nheads, cfg.ssm_head_dim),
+            conv_out[..., di:di + n], conv_out[..., di + n:])
+
+
+def _plain_prefill(p, cfg: ModelConfig, conv_in, dt, a):
+    """The plain prefill's conv and scan: x after the conv, the scan's y
+    and the decode state (the conv tail, a view of the conv input, and the
+    final SSD state)."""
+    xs2, bb2, cc2 = _split_conv(F.silu(causal_conv(conv_in, p["conv_w"], p["conv_b"])), cfg)
+    y, final_state = ssd_chunked(xs2, dt, a, bb2, cc2, chunk=cfg.ssm_chunk)
+    w1, t = cfg.ssm_conv - 1, conv_in.shape[1]
+    tail = conv_in[:, -w1:, :] if t >= w1 else F.pad(conv_in, (0, 0, w1 - t, 0))
+    return xs2, y, (tail, final_state)
+
+
+def _decode_step(p, cfg: ModelConfig, conv_in, dt, a, state):
+    """One decode step's conv and recurrence: x after the conv, y and the
+    new (conv, SSD) state."""
+    conv_state, ssd_state = state
+    window = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
+    conv_out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
+    conv_out = (conv_out[:, None, :] + p["conv_b"].float()).to(conv_in.dtype)
+    xs2, bb2, cc2 = _split_conv(F.silu(conv_out), cfg)
+    decay = torch.exp(dt[:, 0, :] * a)  # (B,H)
+    upd = torch.einsum("bn,bh,bhv->bhnv", bb2[:, 0].float(), dt[:, 0, :], xs2[:, 0].float())
+    final_state = decay[:, :, None, None] * ssd_state + upd
+    y = torch.einsum("bn,bhnv->bhv", cc2[:, 0].float(), final_state)
+    return xs2, y[:, None].to(xs2.dtype), (window[:, 1:, :], final_state)
 
 
 def _fused_prefill(p, cfg: ModelConfig, xs, bb, cc, z, dt, a):
@@ -244,66 +293,8 @@ def _fused_prefill(p, cfg: ModelConfig, xs, bb, cc, z, dt, a):
     its own, so no (B,T,C) conv input is built or kept; the scan on views of
     its output; then D skip, gate and RMSNorm from the scan's f32 output as
     it wrote it."""
-    di, n = cfg.d_inner, cfg.ssm_state
     conv_out, tail = mamba_glue.mamba_conv(xs, bb, cc, p["conv_w"], p["conv_b"])
-    xs2 = split_heads(conv_out[..., :di], cfg.ssm_nheads, cfg.ssm_head_dim)
-    y, final_state = ssd_padded(xs2, dt, a, conv_out[..., di:di + n], conv_out[..., di + n:],
-                                chunk=cfg.ssm_chunk)
+    xs2, bb2, cc2 = _split_conv(conv_out, cfg)
+    y, final_state = ssd_padded(xs2, dt, a, bb2, cc2, chunk=cfg.ssm_chunk)
     y = mamba_glue.mamba_gate_norm(y, xs2, z, p["d_skip"], p["norm"], cfg.norm_eps)
     return y @ p["w_out"], (tail, final_state)
-
-
-def mamba_apply(p, x, cfg: ModelConfig, *, state=None):
-    """Mamba-2 block.  Prefill: state=None.  Decode: state is
-    (conv_state (B,W-1,C), ssd_state (B,H,N,P)) and x is (B,1,D).
-    Returns (out, (conv_state, ssd_state)).  A prefill of bf16 tensors on
-    the card that autograd does not record runs its glue as two CUDA kernels
-    (:func:`_fused_prefill`); its conv tail is then a tensor of its own,
-    where the plain chain's is a view of the whole conv input."""
-    with spans.span(spans.MAMBA):
-        b_sz, t, _ = x.shape
-        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
-        pdim = cfg.ssm_head_dim
-        z = x @ p["w_z"]
-        xs = x @ p["w_x"]
-        bb = x @ p["w_b"]
-        cc = x @ p["w_c"]
-        dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])
-        a = -torch.exp(p["a_log"])
-        if state is None and _takes_fused(p, x, xs):
-            return _fused_prefill(p, cfg, xs, bb, cc, z, dt, a)
-
-        conv_in = torch.cat([xs, bb.to(xs.dtype), cc.to(xs.dtype)], -1)
-        if state is None:
-            conv_out = causal_conv(conv_in, p["conv_w"], p["conv_b"])
-        else:
-            conv_state, ssd_state = state
-            window = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
-            conv_out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
-            conv_out = (conv_out[:, None, :] + p["conv_b"].float()).to(conv_in.dtype)
-            new_conv_state = window[:, 1:, :]
-        conv_out = F.silu(conv_out)
-        xs2 = split_heads(conv_out[..., :di], h, pdim)  # a strided view
-        bb2 = conv_out[..., di : di + n]
-        cc2 = conv_out[..., di + n :]
-
-        if state is None:
-            y, final_state = ssd_chunked(xs2, dt, a, bb2, cc2, chunk=cfg.ssm_chunk)
-        else:
-            decay = torch.exp(dt[:, 0, :] * a)  # (B,H)
-            upd = torch.einsum("bn,bh,bhv->bhnv", bb2[:, 0].float(), dt[:, 0, :],
-                               xs2[:, 0].float())
-            final_state = decay[:, :, None, None] * ssd_state + upd
-            y = torch.einsum("bn,bhnv->bhv", cc2[:, 0].float(), final_state)
-            y = y[:, None].to(x.dtype).reshape(b_sz, 1, h, pdim)
-
-        y = y + xs2 * p["d_skip"].to(y.dtype).reshape(1, 1, h, 1)
-        y = merge_heads(y)
-        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-        out = y @ p["w_out"]
-        if state is None:
-            # prefill returns the final SSD state and the conv tail for decode
-            w1 = cfg.ssm_conv - 1
-            tail = conv_in[:, -w1:, :] if t >= w1 else F.pad(conv_in, (0, 0, w1 - t, 0))
-            return out, (tail, final_state)
-        return out, (new_conv_state, final_state)

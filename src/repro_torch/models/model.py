@@ -420,14 +420,8 @@ class MambaLM(_LM):
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
         dt = L.dtype_of(cfg)
-        ch = cfg.d_inner + 2 * cfg.ssm_state
-        cache = {
-            "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1, ch), dtype=dt,
-                                device=self.device),
-            "ssd": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_nheads, cfg.ssm_state,
-                                cfg.ssm_head_dim), dtype=torch.float32, device=self.device),
-            "len": 0,
-        }
+        conv, ssd = M.zero_states(cfg, cfg.n_layers, batch_size, self.device)
+        cache = {"conv": conv, "ssd": ssd, "len": 0}
         if self.hybrid:
             kv = (self.n_apps, batch_size, max_len, cfg.n_kv_heads, cfg.hd())
             cache["ak"] = torch.zeros(kv, dtype=dt, device=self.device)
@@ -721,14 +715,11 @@ class HybridMoELM(_LM):
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
         dt = L.dtype_of(cfg)
-        nm = cfg.layers_of("mamba")
-        ch = cfg.d_inner + 2 * cfg.ssm_state
+        conv, ssd = M.zero_states(cfg, cfg.layers_of("mamba"), batch_size, self.device)
         kv = (self.n_apps, batch_size, max_len, cfg.n_kv_heads, cfg.hd())
         return {
-            "conv": torch.zeros((nm, batch_size, cfg.ssm_conv - 1, ch), dtype=dt,
-                                device=self.device),
-            "ssd": torch.zeros((nm, batch_size, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim),
-                               dtype=torch.float32, device=self.device),
+            "conv": conv,
+            "ssd": ssd,
             "ak": torch.zeros(kv, dtype=dt, device=self.device),
             "av": torch.zeros(kv, dtype=dt, device=self.device),
             "len": 0,

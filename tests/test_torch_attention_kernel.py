@@ -3,11 +3,11 @@
 
 The tests marked ``cuda`` need an NVIDIA GPU and skip without one: they hold
 the kernel to ``blocked_causal_attention`` in bf16 and check that
-``attention_apply`` takes it only where autograd records nothing.  The
-others run on the CPU: CPU tensors and recorded graphs take the blocked
-path and launch nothing, and the wrapper refuses what the kernel does not
-take.  The file imports neither JAX nor ``repro``.  Run the card's tests
-with::
+``attention_apply`` takes it where ``kernels/route.py``'s rule lets it, at
+``smoke()``'s head dim of 16 too, and raises for a head dim without an
+instance.  The others run on the CPU: the wrapper refuses what the kernel
+does not take (``tests/test_torch_kernel_route.py`` holds the CPU route).
+The file imports neither JAX nor ``repro``.  Run the card's tests with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_attention_kernel.py
 """
@@ -31,6 +31,7 @@ RTOL, ATOL = 2.0 ** -7, 2.0 ** -8
 # (batch, t, heads, kv heads, head dim, s, q_offset, attn_chunk)
 CASES = {
     "zamba2": (2, 1024, 32, 32, 80, 1024, 0, 0),  # the shared block, batch and T cut
+    "hd16": (2, 200, 4, 2, 16, 200, 0, 0),  # smoke()'s head dim
     "hd64": (2, 512, 8, 8, 64, 512, 0, 0),
     "hd128": (2, 512, 16, 16, 128, 512, 0, 0),
     "hd256": (1, 384, 8, 8, 256, 384, 0, 0),
@@ -136,17 +137,18 @@ def test_a_nope_prefill_takes_the_kernel_at_its_scale(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["prefill", "recorded", "float32"])
+@pytest.mark.parametrize("mode", ["prefill", "recorded", "weight_grad", "float32"])
 def test_attention_apply_takes_the_kernel_only_where_nothing_records(cuda, mode):
     """A bf16 prefill under no_grad launches the kernel once and matches the
-    blocked path; a recorded graph or a float32 model takes the blocked path
-    and launches nothing (the recorded one back-propagates through it)."""
+    blocked path; a recorded graph (every weight, or only ``wq``, requiring
+    grad) or a float32 model takes the blocked path and launches nothing
+    (the recorded ones back-propagate through it)."""
     cfg, p, x, pos = _attention("float32" if mode == "float32" else "bfloat16", 80, cuda)
-    if mode == "recorded":
-        for w in p.values():
-            w.requires_grad_(True)
+    recorded = mode in ("recorded", "weight_grad")
+    for name, w in p.items():
+        w.requires_grad_(mode == "recorded" or (mode == "weight_grad" and name == "wq"))
     reset_launch_counts()
-    with torch.set_grad_enabled(mode == "recorded"):
+    with torch.set_grad_enabled(recorded):
         y, (k, v) = L.attention_apply(p, x, cfg, positions=pos)
         want, _ = _blocked_apply(p, x, cfg, pos)
     torch.cuda.synchronize()
@@ -155,37 +157,35 @@ def test_attention_apply_takes_the_kernel_only_where_nothing_records(cuda, mode)
         _within(y, want, v)
     else:
         assert torch.equal(y, want)
-    if mode == "recorded":
+    if recorded:
         y.float().sum().backward()
-        assert all(w.grad is not None and bool(torch.isfinite(w.grad).all()) for w in p.values())
+        assert all(w.grad is not None and bool(torch.isfinite(w.grad).all())
+                   for w in p.values() if w.requires_grad)
+
+
+@pytest.mark.cuda
+def test_the_smoke_head_dim_takes_the_kernel(cuda):
+    """A bf16 prefill under no_grad at ``smoke()``'s head dim of 16 launches
+    the kernel once and matches the blocked path."""
+    cfg, p, x, pos = _attention("bfloat16", 16, cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        y, (k, v) = L.attention_apply(p, x, cfg, positions=pos)
+        want, (wk, wv) = _blocked_apply(p, x, cfg, pos)
+    torch.cuda.synchronize()
+    assert launch_counts()["causal_attention"] == 1
+    assert torch.equal(k, wk) and torch.equal(v, wv)
+    _within(y, want, v)
 
 
 @pytest.mark.cuda
 def test_a_head_dim_without_an_instance_raises_on_the_card(cuda):
-    cfg, p, x, pos = _attention("bfloat16", 16, cuda)
+    cfg, p, x, pos = _attention("bfloat16", 48, cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
         L.attention_apply(p, x, cfg, positions=pos)
 
 
 # ------------------------------------------------------------------- CPU
-
-@pytest.mark.parametrize("dtype,recorded", [("float32", False), ("bfloat16", False),
-                                            ("bfloat16", True)])
-def test_cpu_tensors_take_the_blocked_path(dtype, recorded):
-    cfg, p, x, pos = _attention(dtype, 80, "cpu")
-    if recorded:
-        for w in p.values():
-            w.requires_grad_(True)
-    reset_launch_counts()
-    with torch.set_grad_enabled(recorded):
-        y, (k, v) = L.attention_apply(p, x, cfg, positions=pos)
-        want, (wk, wv) = _blocked_apply(p, x, cfg, pos)
-    assert launch_counts()["causal_attention"] == 0
-    assert torch.equal(y, want) and torch.equal(k, wk) and torch.equal(v, wv)
-    if recorded:
-        y.float().sum().backward()
-        assert all(w.grad is not None for w in p.values())
-
 
 @pytest.mark.parametrize("what,shapes,kw,err,match", [
     ("head_dim", ((1, 8, 2, 48), (1, 8, 2, 48)), {}, ValueError, "head dim"),

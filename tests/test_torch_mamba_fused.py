@@ -5,11 +5,11 @@ The tests marked ``cuda`` need an NVIDIA GPU and skip without one: they hold
 each kernel to its plain version, and the fused block to the plain chain at
 the widths of mamba2-1.3b, zamba2-2.7b and granite-4.0-h-small, with a ragged
 T, a T shorter than the conv's W - 1 and T = 1, and check where the route
-engages.  The others run on the CPU: CPU tensors of every dtype and shape,
-float32, a recorded graph and decode take the plain chain bit for bit, the
-refusals name what the kernels do not take, and the fused route's wiring
-runs with the kernels' plain versions in their place.  The file imports
-neither JAX nor ``repro``.  Run the card's tests with::
+engages.  The others run on the CPU: the refusals name what the kernels do
+not take, and the fused route's wiring runs with the kernels' plain
+versions in their place (``tests/test_torch_kernel_route.py`` holds the CPU
+route).  The file imports neither JAX nor ``repro``.  Run the card's tests
+with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mamba_fused.py
 """
@@ -199,16 +199,18 @@ def test_the_fused_block_matches_the_plain_chain(cuda, arch, t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["recorded", "float32", "decode", "unsupported_n", "smoke",
-                                  "packed"])
+@pytest.mark.parametrize("mode", ["recorded", "weight_grad", "scan_grad", "float32", "decode",
+                                  "unsupported_n", "smoke", "packed"])
 def test_the_route_on_the_card(cuda, mode):
-    """A recorded graph, a float32 block and a decode step run the plain
-    chain on the card, bit for bit, and launch neither kernel (the recorded
-    one back-propagates); the bf16 smoke block (d_inner 128, N 16, P 16)
-    takes the kernels, also with every weight a view one element into its
-    buffer (a packed leaf); a bf16 prefill at an N the kernels do not take
-    raises with the refusal's reason, launching nothing, rather than run the
-    plain chain unnoticed."""
+    """A recorded graph (every weight, only the norm's scale, or only A's
+    log, which the scan between the kernels reads, requiring grad), a
+    float32 block and a decode step run the plain chain on the
+    card, bit for bit, and launch neither kernel (the recorded ones
+    back-propagate); the bf16 smoke block (d_inner 128, N 16, P 16) takes the
+    kernels, also with every weight a view one element into its buffer (a
+    packed leaf); a bf16 prefill at an N the kernels do not take raises with
+    the refusal's reason, launching nothing, rather than run the plain chain
+    unnoticed."""
     arch = get_config("mamba2-1.3b")
     cfg = smoke(arch, dtype="float32" if mode == "float32" else "bfloat16",
                 **({"ssm_state": 12} if mode == "unsupported_n" else {}))
@@ -218,9 +220,10 @@ def test_the_route_on_the_card(cuda, mode):
         ch = cfg.d_inner + 2 * cfg.ssm_state
         state = (torch.randn((2, cfg.ssm_conv - 1, ch), device=cuda).bfloat16(),
                  torch.randn((2, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim), device=cuda))
-    if mode == "recorded":
-        for w in p.values():
-            w.requires_grad_(True)
+    recorded = mode in ("recorded", "weight_grad", "scan_grad")
+    one = {"weight_grad": "norm", "scan_grad": "a_log"}.get(mode)
+    for name, w in p.items():
+        w.requires_grad_(mode == "recorded" or name == one)
     if mode == "packed":
         p = {k: torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)[1:].view_as(v).copy_(v)
              for k, v in p.items()}
@@ -230,7 +233,7 @@ def test_the_route_on_the_card(cuda, mode):
             M.mamba_apply(p, x, cfg)
         assert set(launch_counts().values()) == {0}
         return
-    with torch.set_grad_enabled(mode == "recorded"):
+    with torch.set_grad_enabled(recorded):
         out, new = M.mamba_apply(p, x, cfg, state=state)
         want, want_new = _plain_apply(p, x, cfg, state=state)
     torch.cuda.synchronize()
@@ -240,39 +243,13 @@ def test_the_route_on_the_card(cuda, mode):
         assert _rel(out, want) <= BLOCK_RTOL and torch.equal(new[0], want_new[0])
     else:
         assert torch.equal(out, want) and _equal(new, want_new)
-    if mode == "recorded":
+    if recorded:
         out.float().sum().backward()
         assert all(w.grad is not None and bool(torch.isfinite(w.grad).all())
-                   for w in p.values())
+                   for w in p.values() if w.requires_grad)
 
 
 # ------------------------------------------------------------------- CPU
-
-@pytest.mark.parametrize("mode", ["float32", "bfloat16", "recorded", "decode", "ragged"])
-def test_cpu_blocks_take_the_plain_chain(mode):
-    """On CPU tensors every block -- float32, bf16 under no_grad, a recorded
-    graph, a decode step, a T ragged against the chunk -- runs the plain
-    chain bit for bit and launches nothing."""
-    cfg = smoke(get_config("mamba2-1.3b"), dtype="float32" if mode == "float32" else "bfloat16")
-    p, x = _block(cfg, "cpu", 2, {"decode": 1, "ragged": 13}.get(mode, 16))
-    state = None
-    if mode == "decode":
-        ch = cfg.d_inner + 2 * cfg.ssm_state
-        state = (torch.randn((2, cfg.ssm_conv - 1, ch)).bfloat16(),
-                 torch.randn((2, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim)))
-    if mode == "recorded":
-        for w in p.values():
-            w.requires_grad_(True)
-    reset_launch_counts()
-    with torch.set_grad_enabled(mode == "recorded"):
-        out, new = M.mamba_apply(p, x, cfg, state=state)
-        want, want_new = _plain_apply(p, x, cfg, state=state)
-    assert set(launch_counts().values()) == {0}
-    assert torch.equal(out, want) and _equal(new, want_new)
-    if mode == "recorded":
-        out.float().sum().backward()
-        assert all(w.grad is not None for w in p.values())
-
 
 def _operands(di=128, n=16, pdim=16, width=4, dtype=torch.bfloat16, t=8):
     """A block's operands on the CPU: (xs, bb, cc, z, conv_w, conv_b,
@@ -297,12 +274,13 @@ def _operands(di=128, n=16, pdim=16, width=4, dtype=torch.bfloat16, t=8):
 def test_the_refusals_name_what_the_kernels_do_not_take(what, kw, match):
     """The shapes are refused before the device is looked at, and a call of
     either wrapper -- so too a bf16 prefill on the card -- raises with the
-    reason.  On the CPU the route does not engage at all."""
+    reason.  On the CPU ``mamba_glue.takes`` does not hold at all."""
     xs, bb, cc, z, w, b, d, norm, pdim = _operands(**kw)
     x4 = xs.unflatten(2, (d.shape[0], pdim)) if xs.shape[2] % pdim == 0 else xs[..., None]
     reasons = [mamba_glue.conv_refusal(xs, bb, cc, w, b), mamba_glue.norm_refusal(x4, z, d, norm)]
     assert any(r is not None and match in r for r in reasons), reasons
-    assert not M._takes_fused({"conv_w": w, "conv_b": b, "d_skip": d, "norm": norm}, xs, xs)
+    dt = torch.ones(xs.shape[:2] + d.shape)
+    assert not mamba_glue.takes(xs, bb, cc, z, dt, -d, w, b, d, norm)
     with pytest.raises(ValueError, match="mamba_glue"):
         if reasons[0] is not None:
             mamba_glue.mamba_conv(xs, bb, cc, w, b)
@@ -319,7 +297,7 @@ def test_the_fused_wiring_with_the_plain_kernels(monkeypatch, t):
     tensor of its own."""
     cfg = smoke(get_config("mamba2-1.3b"), dtype="bfloat16")
     p, x = _block(cfg, "cpu", 2, t)
-    monkeypatch.setattr(M, "_takes_fused", lambda *a: True)
+    monkeypatch.setattr(mamba_glue, "takes", lambda *a: True)
     monkeypatch.setattr(mamba_glue, "mamba_conv", mamba_glue.mamba_conv_plain)
     monkeypatch.setattr(mamba_glue, "mamba_gate_norm", mamba_glue.mamba_gate_norm_plain)
     with torch.no_grad():
